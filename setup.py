@@ -1,4 +1,6 @@
-"""Build script: packages tinyknn_tpu and pre-compiles the native helper.
+"""Build script: packages tinyknn_tpu and its PyTorch/CUDA port
+tinyknn_tpu_torch (whose CUDA sources ship as package data and compile
+with nvcc on first use), and pre-compiles the native helper.
 
 The TPU compute path needs no compilation here (Pallas kernels compile
 at run time via XLA/Mosaic). The only native artifact is the host-side
