@@ -7,23 +7,46 @@ Run from the repository root on a machine with a CUDA device and nvcc.
 In order, and stopping at the first failure with a non-zero exit:
 
 1. device: prints the card, its power limit and the torch/CUDA versions;
-2. build: compiles the scan_fold_csr kernel from csrc/ with nvcc;
-3. kernel check: the kernel against its plain torch version on skewed
-   lists (an empty list, one longer than 128 points, fold widths 1, 2
-   and 6, query counts that are not a multiple of the kernel's query
-   block) for int8 tables (bit-equal), bf16 tables with integer values
-   (bit-equal) and random bf16 tables (decoded values within 1 bf16 ulp,
-   positions equal where values are not tied);
-4. main path: fits and builds IVF("angular", 1087, FastPQ(2)) on the
+2. build: compiles the three kernels from csrc/ with nvcc, one process
+   per source, all started together;
+3. kernel checks, each kernel against its plain torch version on skewed
+   synthetic inputs (an empty list, one longer than 128 points, fold
+   widths 1, 2 and 6, query counts that are not a multiple of the
+   kernel's query block): K1 scan_fold_csr for int8 tables (bit-equal),
+   bf16 tables with integer values (bit-equal) and random bf16 tables
+   (decoded values within 1 bf16 ulp, positions equal where values are
+   not tied); K2 scan_exact_csr on integer-valued inputs (bit-equal)
+   and random ones (the same rule as random bf16 K1); K3
+   estimate_scan_tiled for int8 tables (bit-equal) and bf16 and f32
+   tables (rtol 1e-6);
+4. PQ path: fits and builds IVF("angular", 1087, FastPQ(2)) on the
    GloVe-shape clustered dataset (1,183,514 x 100, made from a seed),
    queries its 10,000 queries at three points (int8 p1=84, bf16 p1=17,
    int8 p1=21), grades recall10@10 against the checked-in f64 ground
-   truth, checks the kernel ran on every query, and repeats the kernel
-   check on the main path's own round-0 inputs;
-5. times: fit, build and each query (host clock ending in a
-   synchronize), the kernel against its plain version at the round-0
-   shape (CUDA events, in turns plain, kernel, kernel, plain), and peak
-   device memory.
+   truth, checks K1 ran on every query, and repeats the K1 check on the
+   path's own round-0 inputs, timing K1 against its plain version there;
+5. exact path: switches that index to the exact engine (build_probes=1,
+   P=1), then rebuilds it with build_probes=2 (P=1 and P=2), grades
+   recall10@10, checks K2 ran, and holds and times K2 against its plain
+   version on the round-0 inputs;
+6. full-scan path: FastPQ(2, rotate_dim=None) on the reference's own
+   example (random 16,000 x 128, 1,000 queries, seed 10): true-NN rank
+   of the full-scan estimates, search recall1@10 for methods 'exact'
+   (K3) and 'approx' (K1 through fold_topk_tiled), both gated; checks
+   both kernels ran, holds each against its plain version on the call
+   the path made (bit-equal, then timed), and times the two wrappers
+   (estimate_scan, fold_topk_tiled) against themselves over the plain
+   kernel, after checking that their outputs are equal;
+7. K3 at real size: the GloVe corpus's codes against 1,000 of its
+   queries, K3 against its plain version (bit-equal, then timed), the
+   two wrappers timed as in phase 6, one warm FastPQ.search batch with
+   its pass-1 sort timed alone, and the same batch with 'approx'.
+
+Every path is driven with the launch counts set to 0 just before it and
+read just after. Times are host clock ending in a synchronize, or CUDA
+events for kernels (in turns: plain, kernel, kernel, plain). Every
+timed IVF query and the reference example's search calls also get a
+torch.profiler stage profile: device time per kernel.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, a JSON object describing each kernel, and the result
@@ -46,7 +69,18 @@ GLOVE = dict(size=1183514, dim=100, n_queries=10000, n_clusters=1087)
 # recall10@10 gates: the JAX package measured 0.6997 (int8, p1=84) and
 # the reference publishes 0.374 (bf16 point, p1=17)
 POINTS = (("int8", 84, 0.68), ("bf16", 17, 0.374), ("int8", 21, None))
+# exact engine recall10@10 gates (JAX package: 0.9685 at build_probes=1
+# and 0.9933 at build_probes=2, both P=1; bench.py gates the latter at
+# 0.97); P=2 at build_probes=2 may fall at most 0.005 below P=1
+EXACT_GATES = (0.96, 0.97, 0.005)
+# full scan of the reference example: true-NN rank median / q90 (JAX on
+# the CPU 2.0 / 19.0; the reference publishes 1.0 / 19.0) and search
+# recall1@10 (JAX on the CPU 0.943)
+FULL_SCAN = dict(n=16000, d=128, n_queries=1000, seed=10)
+FULL_SCAN_GATES = (3.0, 25.0, 0.90)
+K3_QUERIES = 1000
 KERNEL_TIMED_LAUNCHES = 50
+K3_TIMED_LAUNCHES = 5
 PLAIN_TIMED_LAUNCHES = 3
 
 
@@ -137,8 +171,101 @@ def compare_fold(got, want, bf16: bool, exact: bool, B_pad: int,
     return err
 
 
+def exact_case(seed: int, kind: str, n: int = 900, d: int = 12, C: int = 4,
+               qc: int = 20):
+    """A skewed scan_exact_csr input as NumPy arrays: ``(q_aug, x_aug,
+    assign)``, q_aug f32[C, qc, d_aug], x_aug f32[n, d_aug] (values
+    exact in bf16), lists as in ``fold_case``. 'int': small integers, so
+    every dot product is exact in f32 (some negative, clamped to 0);
+    'random': the exact engine's own augmentation of Gaussian points
+    and queries."""
+    import torch
+    from tinyknn_tpu_torch.models.ivf import (
+        _augment_queries, _aug_dim)
+    rng = np.random.default_rng(seed)
+    p = np.array([0.7, 0.25, 0.05, 0.0][:C])
+    assign = rng.choice(C, size=(n, 1), p=p / p.sum())
+    d_aug = _aug_dim(d)
+    if kind == "int":
+        q_aug = rng.integers(-3, 8, size=(C, qc, d_aug)).astype(np.float32)
+        x_aug = rng.integers(0, 8, size=(n, d_aug)).astype(np.float32)
+        return q_aug, x_aug, assign
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    xn = (x.astype(np.float64) ** 2).sum(1)
+    hi = torch.as_tensor(xn, dtype=torch.float32).to(torch.bfloat16).float()
+    x_aug = np.zeros((n, d_aug), np.float32)
+    x_aug[:, :d] = x
+    x_aug[:, d] = hi.numpy()
+    x_aug[:, d + 1] = xn - hi.numpy()
+    x_aug[:, d + 2] = 1.0
+    q = torch.as_tensor(rng.standard_normal((C * qc, d)).astype(np.float32))
+    q_aug = _augment_queries(q).float().numpy().reshape(C, qc, d_aug)
+    x_aug = torch.as_tensor(x_aug).to(torch.bfloat16).float().numpy()
+    return q_aug, x_aug, assign
+
+
+def exact_inputs(q_aug, x_aug, assign, device):
+    """The port's scan_exact_csr arguments for an ``exact_case``:
+    (q_sel, vecs_tiled, tile_offsets, counts, max_tiles)."""
+    import torch
+    from tinyknn_tpu_torch.utils.grouping import invert_assignments_csr_tiled
+    C = q_aug.shape[0]
+    flat_ids, toff, counts = invert_assignments_csr_tiled(assign, C)
+    rows = x_aug[np.maximum(flat_ids, 0)]
+    vecs = rows.reshape(-1, 128, x_aug.shape[1]).transpose(0, 2, 1)
+    max_tiles = max(1, int(-(-counts.max() // 128)))
+    bf16 = torch.bfloat16
+    return (torch.as_tensor(q_aug).to(bf16).to(device),
+            torch.as_tensor(np.ascontiguousarray(vecs)).to(bf16).to(device),
+            torch.as_tensor(toff, device=device),
+            torch.as_tensor(counts, device=device), max_tiles)
+
+
+def estimate_case(seed: int, kind: str, n: int = 1000, B: int = 8,
+                  Q: int = 20):
+    """A full-scan estimate input as NumPy arrays: ``(codes uint8[n, B],
+    tables[Q, B, 16])``, int8 tables for 'int8', random f32 in [0, 10)
+    for 'bf16' and 'f32' (cast by ``estimate_inputs``)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 16, size=(n, B), dtype=np.uint8)
+    if kind == "int8":
+        tables = rng.integers(-128, 128, size=(Q, B, 16)).astype(np.int8)
+    else:
+        tables = (10 * rng.random(size=(Q, B, 16))).astype(np.float32)
+    return codes, tables
+
+
+def estimate_inputs(codes, tables, kind: str, device):
+    """The port's estimate_scan_tiled arguments (code tiles, tables)."""
+    import torch
+    from tinyknn_tpu_torch.ops.kernels import tile_codes
+    from tinyknn_tpu_torch.ops.packing import pack_codes
+    t = torch.as_tensor(tables)
+    if kind == "bf16":
+        t = t.to(torch.bfloat16)
+    return (tile_codes(pack_codes(torch.as_tensor(codes))).to(device),
+            t.to(device))
+
+
+def compare_estimates(got, want, floating: bool) -> float:
+    """Check K3's output against its plain version's; returns the largest
+    absolute difference. int8 tables: bit equality; float tables: rtol
+    1e-6."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"estimate {got.dtype}{got.shape} vs "
+                             f"{want.dtype}{want.shape}")
+    err = float(np.abs(got.astype(np.float64) - want).max(initial=0.0))
+    if not floating and not np.array_equal(got, want):
+        raise AssertionError(f"int8 estimates not bit-equal: max error {err}")
+    if floating and not np.allclose(got, want, rtol=1e-6, atol=0):
+        raise AssertionError(f"float estimates beyond rtol 1e-6: max error "
+                             f"{err}")
+    return err
+
+
 def check_kernel_small(device) -> float:
-    """Phase 3: kernel vs plain version on skewed synthetic lists."""
+    """Phase 3, K1: kernel vs plain version on skewed synthetic lists."""
     from tinyknn_tpu_torch.ops.kernels import (
         scan_fold_csr, scan_fold_csr_reference)
     err = 0.0
@@ -156,8 +283,51 @@ def check_kernel_small(device) -> float:
                 e = compare_fold(got, want, kind != "int8", kind != "bf16",
                                  t.shape[2] // 16, max_tiles)
                 err = max(err, e)
-                print(f"  B={B} qc={qc} {kind:8s} W={W}: ok "
+                print(f"  K1 B={B} qc={qc} {kind:8s} W={W}: ok "
                       f"(max value error {e})")
+    return err
+
+
+def check_exact_small(device) -> float:
+    """Phase 3, K2: kernel vs plain version on skewed synthetic lists."""
+    from tinyknn_tpu_torch.ops.kernels import (
+        scan_exact_csr, scan_exact_csr_reference)
+    err = 0.0
+    for d, qc in ((12, 20), (100, 40)):
+        for kind in ("int", "random"):
+            for W in (1, 2, 6):
+                q_sel, vecs, toff, counts, max_tiles = exact_inputs(
+                    *exact_case(W + d, kind, d=d, qc=qc), device)
+                kw = dict(fold_tiles=W, max_tiles=max_tiles)
+                got = scan_exact_csr(q_sel, vecs, toff, counts, **kw)
+                want = scan_exact_csr_reference(q_sel, vecs, toff, counts,
+                                                **kw)
+                torch_sync()
+                e = compare_fold(got, want, True, kind == "int", 0,
+                                 max_tiles)
+                err = max(err, e)
+                print(f"  K2 d={d} qc={qc} {kind:6s} W={W}: ok (max value "
+                      f"error {e}, bit-equal {bool((got == want).all())})")
+    return err
+
+
+def check_estimate_small(device) -> float:
+    """Phase 3, K3: kernel vs plain version on random codes."""
+    import torch
+    from tinyknn_tpu_torch.ops.kernels import (
+        estimate_scan_tiled, estimate_scan_tiled_reference)
+    err = 0.0
+    for n, B, Q in ((1000, 8, 20), (5000, 64, 45)):
+        for kind in ("int8", "bf16", "f32"):
+            codes_tiled, t = estimate_inputs(
+                *estimate_case(n + B, kind, n=n, B=B, Q=Q), kind, device)
+            got = estimate_scan_tiled(codes_tiled, t)
+            want = estimate_scan_tiled_reference(codes_tiled, t)
+            torch_sync()
+            e = compare_estimates(got, want, kind != "int8")
+            err = max(err, e)
+            print(f"  K3 n={n} B={B} Q={Q} {kind:4s}: ok (max error {e}, "
+                  f"bit-equal {torch.equal(got, want)})")
     return err
 
 
@@ -188,72 +358,122 @@ def event_ms(fn, n: int) -> float:
     return start.elapsed_time(stop) / n
 
 
+def in_turns(kern, plain, n_kernel: int, n_plain: int = PLAIN_TIMED_LAUNCHES):
+    """(kernel ms, plain ms, the four readings) timed with CUDA events in
+    turns plain, kernel, kernel, plain after one warm-up call each."""
+    kern(), plain()
+    p_a = event_ms(plain, n_plain)
+    k_a = event_ms(kern, n_kernel)
+    k_b = event_ms(kern, n_kernel)
+    p_b = event_ms(plain, n_plain)
+    return (k_a + k_b) / 2, (p_a + p_b) / 2, (k_a, k_b, p_a, p_b)
+
+
+def stage_profile(label: str, fn, card: str, reps: int = 3) -> None:
+    """torch.profiler over ``reps`` calls of fn after one warm-up; prints
+    the device busy time and the 15 device activities (kernels, copies)
+    with the most time, per call. Only device rows are summed: a torch
+    operator's row repeats the time of the kernels it launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch_sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch_sync()
+
+    def device_us(e):
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            return 0
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    rows = sorted(((device_us(e) / reps / 1e3, e.count / reps, e.key)
+                   for e in prof.key_averages() if device_us(e) > 0),
+                  reverse=True)
+    print(f"  profile, {label}: device busy "
+          f"{sum(r[0] for r in rows):.3f} ms per call ({reps} calls) {card}")
+    for ms, n, key in rows[:15]:
+        print(f"    {ms:9.3f} ms x{n:<5g} {key[:100]}")
+
+
 def recall_at_10(ids, truth) -> float:
     ids = ids.cpu().numpy()
     return float(np.mean([len(set(a.tolist()) & set(t.tolist())) / 10
                           for a, t in zip(ids, truth)]))
 
 
-def main() -> int:
+def kernel_table():
+    """(name, wrapper, plain version, source, TPU kernel) of every
+    kernel, K1 to K3."""
+    from tinyknn_tpu_torch.ops import kernels as k
+    return (
+        ("scan_fold_csr", k.scan_fold_csr, k.scan_fold_csr_reference,
+         "tinyknn_tpu/ops/kernels.py:413"),
+        ("scan_exact_csr", k.scan_exact_csr, k.scan_exact_csr_reference,
+         "tinyknn_tpu/ops/kernels.py:527"),
+        ("estimate_scan_tiled", k.estimate_scan_tiled,
+         k.estimate_scan_tiled_reference, "tinyknn_tpu/ops/kernels.py:162"),
+    )
+
+
+def reset_counts():
+    for _, wrapper, plain, _ in kernel_table():
+        wrapper.launches = 0
+        plain.cuda_calls = 0
+
+
+def read_counts(path: str) -> dict:
+    """Launch counts since ``reset_counts``; fails if a plain version ran
+    on a CUDA tensor."""
+    counts = {name: wrapper.launches for name, wrapper, _, _ in
+              kernel_table()}
+    plain = {name: plain.cuda_calls for name, _, plain, _ in kernel_table()}
+    print(f"  {path}: kernel launches {counts}; plain versions on CUDA "
+          f"tensors {plain}")
+    if any(plain.values()):
+        raise AssertionError(f"a plain version ran on the card in {path}")
+    return counts
+
+
+def capture_first(module, name: str, store: dict):
+    """Wrap ``module.<name>`` so that its first call's arguments are kept
+    in ``store``; returns a function that undoes the wrap."""
+    original = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        store.setdefault(args[0].dtype, (args, kw))
+        return original(*args, **kw)
+
+    def undo():
+        setattr(module, name, original)
+        if hasattr(original, "launches"):
+            original.launches += wrapped.launches
+
+    # a kernel wrapper counts its launches on the function its own module
+    # names, which is ``wrapped`` while the wrap is on in that module;
+    # ``undo`` moves those launches back
+    wrapped.launches = 0
+    setattr(module, name, wrapped)
+    return undo
+
+
+def pq_path(ivf, data, queries, truth, card):
+    """Phase 4: the IVF query over 4-bit PQ codes through K1."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this run "
-              "needs a CUDA device", file=sys.stderr)
-        return 1
     import tinyknn_tpu_torch.models.ivf as ivf_module
-    from tinyknn_tpu_torch import IVF, FastPQ, make_clustered
-    from tinyknn_tpu_torch.ops import _build
     from tinyknn_tpu_torch.ops.kernels import (
         scan_fold_csr, scan_fold_csr_reference)
-    from tinyknn_tpu_torch.utils.bruteforce import fp32_matmuls
-
-    # -- 1. device
-    device = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    card = f"[{smi}]"
-    print(f"device: {name}; nvidia-smi: {smi}; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}; devices: {torch.cuda.device_count()}")
-    fp32_matmuls()
-    print("TF32 off: matmul", torch.backends.cuda.matmul.allow_tf32,
-          "cudnn", torch.backends.cudnn.allow_tf32)
-
-    # -- 2. build
-    build = _build.build("scan_fold_csr")
-    how = (f"{build.seconds:.2f} s" if build.seconds
-           else "reused an earlier build")
-    print(f"build: {build.path.name} ({how})")
-    for line in build.log.splitlines():
-        if "ptxas" in line:
-            print("  " + line.strip())
-
-    # -- 3. kernel against its plain version
-    print("kernel check, skewed lists:")
-    max_err = check_kernel_small(device)
-
-    # -- 4. main path at the GloVe shape
-    data, queries = make_clustered(GLOVE["size"], GLOVE["dim"],
-                                   GLOVE["n_queries"])
-    truth = np.load(TRUTH)
     captured = {}                       # first K1 call of each table type
-
-    def capture(tables_sel, *args, **kw):
-        captured.setdefault(tables_sel.dtype, (tables_sel, args, kw))
-        return scan_fold_csr(tables_sel, *args, **kw)
-
-    ivf_module.scan_fold_csr = capture
+    undo = capture_first(ivf_module, "scan_fold_csr", captured)
     torch.cuda.reset_peak_memory_stats()
-    scan_fold_csr.launches = 0
-    scan_fold_csr_reference.cuda_calls = 0
-    ivf = IVF("angular", GLOVE["n_clusters"], FastPQ(2, device=device),
-              device=device)
+    reset_counts()
     _, t_fit = timed(lambda: ivf.fit(data))
     _, t_build = timed(lambda: ivf.build(data, n_probes=1))
     counts = ivf.list_counts.cpu().numpy()
-    print(f"main path: fit {t_fit:.3f} s, build {t_build:.3f} s {card}; "
+    print(f"PQ path: fit {t_fit:.3f} s, build {t_build:.3f} s {card}; "
           f"{len(counts)} lists, max_tiles {ivf.max_tiles}, list length "
           f"min {counts.min()} / median {int(np.median(counts))} / "
           f"max {counts.max()}")
@@ -277,58 +497,437 @@ def main() -> int:
                                  f"{table_dtype} p1={p1}")
         results.append(dict(table_dtype=table_dtype, pass_1=p1, recall=rec,
                             query_s=t_warm, first_query_s=t_cold))
-    launches = scan_fold_csr.launches
-    plain_on_cuda = scan_fold_csr_reference.cuda_calls
-    ivf_module.scan_fold_csr = scan_fold_csr
+        stage_profile(f"PQ path {table_dtype} p1={p1}", run, card)
+    launches = read_counts("PQ path")["scan_fold_csr"]
+    undo()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  kernel launches in the main path: {launches}; plain fold "
-          f"calls on CUDA tensors: {plain_on_cuda}; peak device memory "
-          f"{peak_gb:.2f} GiB {card}")
-    if launches == 0 or plain_on_cuda != 0:
-        raise AssertionError("the main path did not run on the kernel")
+    print(f"  peak device memory {peak_gb:.2f} GiB {card}")
+    if launches == 0:
+        raise AssertionError("the PQ path did not run on K1")
 
-    print("kernel check, main path round-0 inputs:")
-    round0 = {}
-    for dtype, (t, args, kw) in captured.items():
-        got = scan_fold_csr(t, *args, **kw)
-        want = scan_fold_csr_reference(t, *args, **kw)
+    print("K1 check, PQ path round-0 inputs:")
+    err, round0 = 0.0, {}
+    for dtype, (args, kw) in captured.items():
+        got = scan_fold_csr(*args, **kw)
+        want = scan_fold_csr_reference(*args, **kw)
         torch_sync()
         bf16 = dtype == torch.bfloat16
+        t = args[0]
         e = compare_fold(got, want, bf16, not bf16, t.shape[2] // 16,
                          kw["max_tiles"])
-        max_err = max(max_err, e)
+        err = max(err, e)
         print(f"  {dtype} tables {tuple(t.shape)}, fold_tiles "
               f"{kw['fold_tiles']}: ok (max value error {e})")
+        k_ms, p_ms, four = in_turns(lambda: scan_fold_csr(*args, **kw),
+                                    lambda: scan_fold_csr_reference(*args,
+                                                                    **kw),
+                                    KERNEL_TIMED_LAUNCHES)
+        round0[dtype] = (k_ms, p_ms)
+        print(f"  {dtype} times: kernel {four[0]:.4f} / {four[1]:.4f} ms, "
+              f"plain {four[2]:.4f} / {four[3]:.4f} ms per call {card}")
+    summary = {"fit_s": t_fit, "build_s": t_build, "queries": results,
+               "peak_gib": peak_gb}
+    return summary, launches, err, round0
 
-        # -- 5. kernel vs plain times at this shape, in turns
-        def kern():
-            return scan_fold_csr(t, *args, **kw)
 
-        def plain():
-            return scan_fold_csr_reference(t, *args, **kw)
+def exact_query(ivf, queries, truth, P: int, card: str, label: str):
+    run = lambda: ivf.query(queries, k=10, n_probes=P, mode="bucket",  # noqa
+                            with_stats=True)
+    (ids, stats), t_cold = timed(run)
+    (ids, stats), t_warm = timed(run)
+    if ids.shape != (GLOVE["n_queries"], 10):
+        raise AssertionError(f"query returned shape {tuple(ids.shape)}")
+    rec = recall_at_10(ids, truth)
+    print(f"  {label} P={P}: recall10@10 {rec:.4f}, query {t_warm:.4f} s "
+          f"warm ({GLOVE['n_queries'] / t_warm:.0f} QPS), {t_cold:.4f} s "
+          f"first {card}; dropped pairs {stats['dropped_probe_pairs']}, "
+          f"qc0 {stats['queries_per_cluster_cap_round0']}, qc "
+          f"{stats['queries_per_cluster_cap']}, pass_1 {stats['pass_1']}, "
+          f"(r, r_tail) {stats['per_pair_candidates']}")
+    stage_profile(f"exact path {label} P={P}", run, card)
+    return dict(label=label, n_probes=P, recall=rec, query_s=t_warm,
+                first_query_s=t_cold,
+                dropped=stats["dropped_probe_pairs"],
+                qc0=stats["queries_per_cluster_cap_round0"])
 
-        kern(), plain()                                   # warm-up
-        p_a = event_ms(plain, PLAIN_TIMED_LAUNCHES)
-        k_a = event_ms(kern, KERNEL_TIMED_LAUNCHES)
-        k_b = event_ms(kern, KERNEL_TIMED_LAUNCHES)
-        p_b = event_ms(plain, PLAIN_TIMED_LAUNCHES)
-        round0[dtype] = ((k_a + k_b) / 2, (p_a + p_b) / 2)
-        print(f"  {dtype} times: kernel {k_a:.4f} / {k_b:.4f} ms, plain "
-              f"{p_a:.4f} / {p_b:.4f} ms per call {card}")
 
-    k_ms, p_ms = round0[torch.int8]
+def exact_path(ivf, data, queries, truth, card):
+    """Phase 5: the exact engine through K2, build_probes 1 and 2."""
+    import torch
+    import tinyknn_tpu_torch.models.ivf as ivf_module
+    from tinyknn_tpu_torch.ops.kernels import (
+        scan_exact_csr, scan_exact_csr_reference)
+    g1, g2, slack = EXACT_GATES
+    captured = {}
+    undo = capture_first(ivf_module, "scan_exact_csr", captured)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, t_switch = timed(lambda: ivf.set_scan_impl("exact"))
+    vecs = ivf.csr_vecs
+    print(f"exact path: set_scan_impl('exact') {t_switch:.3f} s {card}; "
+          f"csr_vecs {tuple(vecs.shape)} "
+          f"({vecs.numel() * vecs.element_size() / 1e6:.0f} MB)")
+    bp1 = exact_query(ivf, queries, truth, 1, card, "build_probes=1")
+    launches = read_counts("exact path, build_probes=1")["scan_exact_csr"]
+    undo()
+    if bp1["recall"] < g1:
+        raise AssertionError(f"exact recall {bp1['recall']:.4f} < {g1}")
+    if launches == 0:
+        raise AssertionError("the exact path did not run on K2")
+
+    reset_counts()
+    _, t_build = timed(lambda: ivf.build(data, n_probes=2))
+    counts = ivf.list_counts.cpu().numpy()
+    print(f"  rebuilt with build_probes=2: {t_build:.3f} s {card}; "
+          f"max_tiles {ivf.max_tiles}, list length max {counts.max()}")
+    bp2 = [exact_query(ivf, queries, truth, P, card, "build_probes=2")
+           for P in (1, 2)]
+    launches2 = read_counts("exact path, build_probes=2")["scan_exact_csr"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak device memory {peak_gb:.2f} GiB {card}")
+    if bp2[0]["recall"] < g2:
+        raise AssertionError(f"build_probes=2 P=1 recall "
+                             f"{bp2[0]['recall']:.4f} < {g2}")
+    if bp2[1]["recall"] < bp2[0]["recall"] - slack:
+        raise AssertionError(f"build_probes=2 P=2 recall "
+                             f"{bp2[1]['recall']:.4f} more than {slack} "
+                             f"below P=1")
+    if launches2 == 0:
+        raise AssertionError("the build_probes=2 exact path did not run K2")
+
+    print("K2 check, exact path round-0 inputs:")
+    args, kw = captured[torch.bfloat16]
+    got = scan_exact_csr(*args, **kw)
+    want = scan_exact_csr_reference(*args, **kw)
+    torch_sync()
+    err = compare_fold(got, want, True, False, 0, kw["max_tiles"])
+    print(f"  q_sel {tuple(args[0].shape)}, fold_tiles {kw['fold_tiles']}: "
+          f"ok (max value error {err}, bit-equal "
+          f"{bool((got == want).all())})")
+    del got, want
+    k_ms, p_ms, four = in_turns(lambda: scan_exact_csr(*args, **kw),
+                                lambda: scan_exact_csr_reference(*args,
+                                                                 **kw),
+                                KERNEL_TIMED_LAUNCHES)
+    print(f"  times: kernel {four[0]:.4f} / {four[1]:.4f} ms, plain "
+          f"{four[2]:.4f} / {four[3]:.4f} ms per call {card}")
+    summary = {"set_scan_impl_s": t_switch, "build_bp2_s": t_build,
+               "queries": [bp1] + bp2, "peak_gib": peak_gb}
+    return summary, launches, err, (k_ms, p_ms)
+
+
+def true_nn_ranks(est, truth):
+    """Mid-rank of each query's true nearest neighbour among the
+    estimates (bench.py's rank)."""
+    import torch
+    tru = torch.gather(est, 1, truth[:, None])
+    less = (est < tru).sum(1)
+    ties = (est == tru).sum(1) - 1
+    return (less + ties // 2).cpu().numpy()
+
+
+def over_plain(module, name: str, plain, fn):
+    """fn() with ``module.<name>`` swapped for its plain version."""
+    kernel = getattr(module, name)
+    setattr(module, name, plain)
+    try:
+        return fn()
+    finally:
+        setattr(module, name, kernel)
+
+
+def time_wrappers(codes, tables, true_n: int, rescore: int, n_kernel: int,
+                  n_plain: int, card: str) -> dict:
+    """The two wrappers, ``estimate_scan`` (K3) and ``fold_topk_tiled``
+    (K1), against the same wrappers over the plain kernel: equal outputs,
+    one kernel launch per kernel-arm call and none in the plain arm, then
+    times in turns. Returns {wrapper: (kernel ms, plain ms)}."""
+    import torch
+    import tinyknn_tpu_torch.ops.kernels as km
+    import tinyknn_tpu_torch.ops.scan as sm
+    tiled = km.tile_codes(codes)
+    est = lambda: sm.estimate_scan(codes, tables, packed=True)  # noqa: E731
+    fold = lambda: km.fold_topk_tiled(tiled, tables, true_n,  # noqa: E731
+                                      rescore)
+    arms = (("estimate_scan", est, sm, "estimate_scan_tiled",
+             km.estimate_scan_tiled, km.estimate_scan_tiled_reference),
+            ("fold_topk_tiled", fold, km, "scan_fold_csr", km.scan_fold_csr,
+             km.scan_fold_csr_reference))
+    out = {}
+    for wname, run, module, kname, kernel, plain in arms:
+        plain_run = lambda: over_plain(module, kname, plain, run)  # noqa
+        before = kernel.launches
+        got, want = run(), plain_run()
+        torch_sync()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{wname} over K differs from {wname} over "
+                                 f"the plain version")
+        del got, want
+        k_ms, p_ms, four = in_turns(run, plain_run, n_kernel, n_plain)
+        launched = kernel.launches - before
+        if launched != 2 * n_kernel + 2:
+            raise AssertionError(f"{wname}: {launched} {kname} launches in "
+                                 f"the timing, expected {2 * n_kernel + 2}")
+        out[wname] = (k_ms, p_ms)
+        print(f"  wrapper {wname}: output equal to the plain swap; kernel "
+              f"{four[0]:.4f} / {four[1]:.4f} ms, plain {four[2]:.4f} / "
+              f"{four[3]:.4f} ms per call {card}")
+    return out
+
+
+def full_scan_path(device, card):
+    """Phase 6: FastPQ's full scan on the reference's example."""
+    import torch
+    import tinyknn_tpu_torch.ops.kernels as kernels_module
+    import tinyknn_tpu_torch.ops.scan as scan_module
+    from tinyknn_tpu_torch import FastPQ, knn_brute
+    from tinyknn_tpu_torch.ops.kernels import (
+        estimate_scan_tiled, estimate_scan_tiled_reference, scan_fold_csr,
+        scan_fold_csr_reference)
+    med_gate, q90_gate, rec_gate = FULL_SCAN_GATES
+    np.random.seed(FULL_SCAN["seed"])
+    X = np.random.randn(FULL_SCAN["n"], FULL_SCAN["d"]).astype(np.float32)
+    qs = np.random.randn(FULL_SCAN["n_queries"],
+                         FULL_SCAN["d"]).astype(np.float32)
+    Xd, qd = torch.as_tensor(X, device=device), torch.as_tensor(qs,
+                                                               device=device)
+    truth = knn_brute(qd, Xd, k=1)[:, 0]
+    # the wraps go on after the reset: the counts live on the wrappers
+    reset_counts()
+    k3_calls = {}
+    undo = capture_first(scan_module, "estimate_scan_tiled", k3_calls)
+    pq = FastPQ(2, rotate_dim=None, device=device)
+    data, t_fit = timed(lambda: pq.fit_transform(Xd))
+    est, t_est = timed(lambda: pq.distance_table(qd).estimate_distances(data))
+    ranks = true_nn_ranks(est, truth)
+    med, q90 = float(np.median(ranks)), float(np.quantile(ranks, 0.9))
+    ids, t_search = timed(lambda: pq.search(qd, data, Xd, k=10))
+    _, t_search = timed(lambda: pq.search(qd, data, Xd, k=10))
+    rec = float((ids == truth[:, None]).any(1).float().mean())
+    stage_profile("full scan, search 'exact'",
+                  lambda: pq.search(qd, data, Xd, k=10), card, reps=5)
+    undo()
+    print(f"full-scan path: fit+transform {t_fit:.3f} s; true-NN rank "
+          f"median {med} / q90 {q90} (JAX on the CPU 2.0 / 19.0); "
+          f"search recall1@10 {rec:.4f} (JAX 0.943); tables+estimate "
+          f"{t_est * 1e3:.3f} ms first, search {t_search * 1e3:.3f} ms warm "
+          f"{card}")
+    launches = read_counts("full-scan path, method='exact'")
+    if med > med_gate or q90 > q90_gate:
+        raise AssertionError(f"true-NN rank {med} / {q90} above the gates "
+                             f"{med_gate} / {q90_gate}")
+    if rec < rec_gate:
+        raise AssertionError(f"search recall1@10 {rec:.4f} < {rec_gate}")
+    if launches["estimate_scan_tiled"] == 0:
+        raise AssertionError("the full-scan path did not run on K3")
+
+    reset_counts()
+    k1_calls = {}
+    undo = capture_first(kernels_module, "scan_fold_csr", k1_calls)
+    ids_a, t_a = timed(lambda: pq.search(qd, data, Xd, k=10,
+                                         method="approx"))
+    _, t_a = timed(lambda: pq.search(qd, data, Xd, k=10, method="approx"))
+    stage_profile("full scan, search 'approx'",
+                  lambda: pq.search(qd, data, Xd, k=10, method="approx"),
+                  card, reps=5)
+    undo()
+    rec_a = float((ids_a == truth[:, None]).any(1).float().mean())
+    print(f"  method='approx' (K1 via fold_topk_tiled): recall1@10 "
+          f"{rec_a:.4f}, search {t_a * 1e3:.3f} ms warm {card}")
+    approx = read_counts("full-scan path, method='approx'")
+    if rec_a < rec_gate:
+        raise AssertionError(f"approx search recall1@10 {rec_a:.4f} < "
+                             f"{rec_gate}")
+    if approx["scan_fold_csr"] == 0:
+        raise AssertionError("the approx route did not run on K1")
+
+    print("K3 and K1 checks, full-scan path inputs:")
+    (args, kw), = k3_calls.values()
+    got = estimate_scan_tiled(*args, **kw)
+    e3 = compare_estimates(got, estimate_scan_tiled_reference(*args, **kw),
+                           False)
+    k3 = in_turns(lambda: estimate_scan_tiled(*args, **kw),
+                  lambda: estimate_scan_tiled_reference(*args, **kw),
+                  KERNEL_TIMED_LAUNCHES)
+    print(f"  K3 codes {tuple(args[0].shape)}, tables {tuple(args[1].shape)}"
+          f": bit-equal; kernel {k3[2][0]:.4f} / {k3[2][1]:.4f} ms, plain "
+          f"{k3[2][2]:.4f} / {k3[2][3]:.4f} ms per call {card}")
+    (args, kw), = k1_calls.values()
+    got = scan_fold_csr(*args, **kw)
+    e1 = compare_fold(got, scan_fold_csr_reference(*args, **kw), False, True,
+                      args[0].shape[2] // 16, kw["max_tiles"])
+    k1 = in_turns(lambda: scan_fold_csr(*args, **kw),
+                  lambda: scan_fold_csr_reference(*args, **kw),
+                  KERNEL_TIMED_LAUNCHES)
+    print(f"  K1 tables {tuple(args[0].shape)}, fold_tiles "
+          f"{kw['fold_tiles']}, max_tiles {kw['max_tiles']}: bit-equal; "
+          f"kernel {k1[2][0]:.4f} / {k1[2][1]:.4f} ms, plain "
+          f"{k1[2][2]:.4f} / {k1[2][3]:.4f} ms per call {card}")
+    del got
+    wrappers = time_wrappers(data.packed, pq.distance_table(qd).tables,
+                             data.size, 30, 20, PLAIN_TIMED_LAUNCHES, card)
+    summary = {"rank_median": med, "rank_q90": q90, "recall1_at_10": rec,
+               "search_ms": t_search * 1e3, "approx_recall1_at_10": rec_a,
+               "approx_search_ms": t_a * 1e3, "wrappers_ms": wrappers}
+    return (summary, launches["estimate_scan_tiled"], approx["scan_fold_csr"],
+            (e1, k1[:2]), (e3, k3[:2]))
+
+
+def k3_real_size(ivf, queries, truth, card):
+    """Phase 7: K3 on the GloVe corpus's codes with 1,000 queries."""
+    import torch
+    from tinyknn_tpu_torch.ops.kernels import (
+        estimate_scan_tiled, estimate_scan_tiled_reference, tile_codes)
+    from tinyknn_tpu_torch.ops.scan import estimate_scan
+    from tinyknn_tpu_torch.ops.topk import smallest_k
+    ivf.pq.table_dtype = "int8"
+    qn = torch.nn.functional.normalize(
+        torch.as_tensor(queries[:K3_QUERIES], device=ivf.device), dim=1)
+    codes = ivf.pq.transform(ivf.data)
+    codes_tiled = tile_codes(codes.packed)
+    tables = ivf.pq.distance_table(qn).tables
+    got = estimate_scan_tiled(codes_tiled, tables)
+    want = estimate_scan_tiled_reference(codes_tiled, tables)
+    torch_sync()
+    same = torch.equal(got, want)
+    err = float((got - want).abs().max())
+    print(f"K3 at real size: codes {tuple(codes_tiled.shape)}, tables "
+          f"{tuple(tables.shape)} -> {tuple(got.shape)}: bit-equal {same} "
+          f"(max error {err})")
+    if not same:
+        raise AssertionError("K3 disagrees with its plain version")
+    del got, want
+    k_ms, p_ms, four = in_turns(
+        lambda: estimate_scan_tiled(codes_tiled, tables),
+        lambda: estimate_scan_tiled_reference(codes_tiled, tables),
+        K3_TIMED_LAUNCHES)
+    T, Bs_pad, _ = codes_tiled.shape
+    lookups = K3_QUERIES * T * 128 * 2 * Bs_pad
+    print(f"  times: kernel {four[0]:.3f} / {four[1]:.3f} ms, plain "
+          f"{four[2]:.3f} / {four[3]:.3f} ms per call {card}; "
+          f"{lookups / (k_ms * 1e-3):.3e} lookups/s")
+    wrappers = time_wrappers(codes.packed, tables, codes.size, 30,
+                             K3_TIMED_LAUNCHES, 1, card)
+    run = lambda: ivf.pq.search(qn, codes, ivf.data, k=10)  # noqa: E731
+    timed(run)
+    ids, t_search = timed(run)
+    rec = recall_at_10(ids, truth[:K3_QUERIES])
+    est = estimate_scan(codes.packed, tables, packed=True)
+    sort_ms = event_ms(lambda: smallest_k(est, 30), 2)
+    del est
+    print(f"  FastPQ.search of {K3_QUERIES} queries over the corpus: "
+          f"{t_search * 1e3:.3f} ms warm {card}; recall10@10 {rec:.4f}; "
+          f"its pass-1 pick (stable sort of the {K3_QUERIES} x "
+          f"{codes.packed.shape[0]} estimates) {sort_ms:.3f} ms")
+    run_a = lambda: ivf.pq.search(qn, codes, ivf.data, k=10,  # noqa: E731
+                                  method="approx")
+    timed(run_a)
+    ids_a, t_a = timed(run_a)
+    rec_a = recall_at_10(ids_a, truth[:K3_QUERIES])
+    print(f"  the same with method='approx': {t_a * 1e3:.3f} ms warm "
+          f"{card}; recall10@10 {rec_a:.4f}")
+    return err, (k_ms, p_ms), {"search_ms": t_search * 1e3,
+                               "recall10_at_10": rec, "pass1_sort_ms": sort_ms,
+                               "approx_search_ms": t_a * 1e3,
+                               "approx_recall10_at_10": rec_a,
+                               "wrappers_ms": wrappers}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this run "
+              "needs a CUDA device", file=sys.stderr)
+        return 1
+    from tinyknn_tpu_torch import IVF, FastPQ, make_clustered
+    from tinyknn_tpu_torch.ops import _build
+    from tinyknn_tpu_torch.utils.bruteforce import fp32_matmuls
+
+    # -- 1. device
+    device = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    card = f"[{smi}]"
+    print(f"device: {name}; nvidia-smi: {smi}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}; devices: {torch.cuda.device_count()}")
+    fp32_matmuls()
+    print("TF32 off: matmul", torch.backends.cuda.matmul.allow_tf32,
+          "cudnn", torch.backends.cudnn.allow_tf32)
+
+    # -- 2. build, one nvcc per source, all at once
+    t0 = time.perf_counter()
+    builds = _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s wall")
+    for build in builds.values():
+        how = (f"{build.seconds:.2f} s" if build.seconds
+               else "reused an earlier build")
+        print(f"  {build.path.name} ({how})")
+        for line in build.log.splitlines():
+            if "ptxas" in line:
+                print("    " + line.strip())
+
+    # -- 3. kernels against their plain versions
+    print("kernel checks, synthetic inputs:")
+    err = {"scan_fold_csr": check_kernel_small(device),
+           "scan_exact_csr": check_exact_small(device),
+           "estimate_scan_tiled": check_estimate_small(device)}
+
+    # -- 4. PQ path at the GloVe shape (K1)
+    data, queries = make_clustered(GLOVE["size"], GLOVE["dim"],
+                                   GLOVE["n_queries"])
+    truth = np.load(TRUTH)
+    ivf = IVF("angular", GLOVE["n_clusters"], FastPQ(2, device=device),
+              device=device)
+    pq_sum, k1_launches, e1, round0 = pq_path(ivf, data, queries, truth,
+                                              card)
+    err["scan_fold_csr"] = max(err["scan_fold_csr"], e1)
+
+    # -- 5. exact path (K2)
+    exact_sum, k2_launches, e2, k2_times = exact_path(ivf, data, queries,
+                                                      truth, card)
+    err["scan_exact_csr"] = max(err["scan_exact_csr"], e2)
+
+    # -- 6. full-scan path (K3, and K1 through fold_topk_tiled)
+    (fs_sum, k3_launches, k1_approx_launches, (e1, k1_fs_times),
+     (e3, k3_fs_times)) = full_scan_path(device, card)
+    err["scan_fold_csr"] = max(err["scan_fold_csr"], e1)
+    err["estimate_scan_tiled"] = max(err["estimate_scan_tiled"], e3)
+
+    # -- 7. K3 on the GloVe corpus's codes
+    e3, k3_times, k3_sum = k3_real_size(ivf, queries, truth, card)
+    err["estimate_scan_tiled"] = max(err["estimate_scan_tiled"], e3)
+    del ivf
+
+    k1_ms, p1_ms = round0[torch.int8]
     kb_ms, pb_ms = round0.get(torch.bfloat16, (None, None))
-    print(json.dumps({"fit_s": t_fit, "build_s": t_build,
-                      "queries": results, "peak_gib": peak_gb,
+    print(json.dumps({"pq_path": pq_sum, "exact_path": exact_sum,
+                      "full_scan": fs_sum, "k3_real_size": k3_sum,
                       "card": smi}))
     print(smi)
+    rows = {
+        "scan_fold_csr": dict(launches=k1_launches, ms=k1_ms, plain_ms=p1_ms,
+                              bf16_ms=kb_ms, bf16_plain_ms=pb_ms,
+                              approx_route_launches=k1_approx_launches,
+                              approx_route_ms=k1_fs_times[0],
+                              approx_route_plain_ms=k1_fs_times[1]),
+        "scan_exact_csr": dict(launches=k2_launches, ms=k2_times[0],
+                               plain_ms=k2_times[1]),
+        "estimate_scan_tiled": dict(launches=k3_launches, ms=k3_times[0],
+                                    plain_ms=k3_times[1],
+                                    full_scan_ms=k3_fs_times[0],
+                                    full_scan_plain_ms=k3_fs_times[1]),
+    }
     print(json.dumps({"kernels": [{
-        "name": "scan_fold_csr", "route": "cuda",
-        "source": "tinyknn_tpu_torch/csrc/scan_fold_csr.cu",
-        "replaces": "tinyknn_tpu/ops/kernels.py:413",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms,
-        "bf16_ms": kb_ms, "bf16_plain_ms": pb_ms}]}))
+        "name": kname, "route": "cuda",
+        "source": f"tinyknn_tpu_torch/csrc/{kname}.cu",
+        "replaces": replaces, "launches": rows[kname].pop("launches"),
+        "max_abs_err": err[kname], **rows[kname]}
+        for kname, _, _, replaces in kernel_table()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -116,8 +116,8 @@ def test_labels_and_state_dict(tmp_path):
 
 
 @pytest.mark.parametrize("kw, call", [
-    (dict(scan_impl="xla"), None), (dict(scan_impl="exact"), None),
-    (dict(pass1_method="approx"), None), (dict(rescore_rows=True), None),
+    (dict(scan_impl="xla"), None), (dict(pass1_method="approx"), None),
+    (dict(rescore_rows=True), None),
     ({}, "gather")])
 def test_unported_options_raise(kw, call):
     if call is None:

@@ -1,5 +1,6 @@
 """IVF: inverted-file index over FastPQ codes (counterpart of
-tinyknn_tpu/models/ivf.py: fit, build and the bucket-mode query).
+tinyknn_tpu/models/ivf.py: fit, build, the bucket-mode query and the
+exact engine).
 
 Coarse k-means clustering; each point is placed in its ``n_probes``
 nearest lists at build; a query scans its ``n_probes`` nearest lists
@@ -19,8 +20,14 @@ Layout and query pipeline are the JAX package's:
   * selection runs on the int32 encodings, and only the survivors are
     decoded, rescored, deduplicated (build_probes > 1) and cut to k.
 
+The exact engine (``scan_impl='exact'``) keeps the same lists but also
+a bf16 copy of every listed vector, augmented so that one dot product
+with an augmented query is the true squared distance
+(``csr_vecs[T, d_aug, 128]``); the ``scan_exact_csr`` kernel scans it
+in place of the codes, and the same selection and rescore follow.
+
 All state lives on the device given at construction. Not ported yet
-(ROADMAP queue 1): gather mode, the 'xla' and 'exact' scan engines,
+(ROADMAP queue 1): gather mode, the 'xla' scan engine,
 ``rescore_rows``, ``query_stream`` and ``tune_n_probes``.
 """
 
@@ -31,10 +38,12 @@ import torch
 
 from ..ops.kernels import (
     ENC_INVALID,
+    EXACT_MAX_POSITIONS,
     LANE_TILE,
     fold_encoding,
     pack_codes_tiled,
     permute_tables_csr,
+    scan_exact_csr,
     scan_fold_csr,
 )
 from ..ops.kmeans import kmeans_fit
@@ -61,9 +70,12 @@ class IVF:
                  pass1_method="auto", scan_impl="auto",
                  fold_mult=FOLD_MULT, rescore_rows=False,
                  scan_budget_bytes=2 << 30, device="cpu"):
-        """``scan_impl``: 'auto' and 'fused' both scan with the
-        scan_fold_csr kernel. ``pass1_method``: 'auto' and 'exact' both
-        select exactly (the card has no approx_max_k). ``device``: where
+        """``scan_impl``: 'auto' and 'fused' both scan the PQ codes with
+        the scan_fold_csr kernel; 'exact' scans bf16 vectors with
+        scan_exact_csr (4x the memory of the codes at dims_per_block=2;
+        lists of at most 65,536 points). ``pass1_method``: 'auto' and
+        'exact' both select exactly (the card has no approx_max_k).
+        ``device``: where
         the index and every query's work live; nothing picks it for you.
 
         ``scan_budget_bytes`` bounds the (C, qc, S) scan grids that the
@@ -72,11 +84,7 @@ class IVF:
         if metric not in ("euclidean", "angular"):
             raise ValueError(f"metric must be euclidean or angular, not "
                              f"{metric!r}")
-        if scan_impl in ("xla", "exact"):
-            raise _not_ported(f"scan_impl={scan_impl!r}",
-                              "item 5 ('xla') / item 8 ('exact')")
-        if scan_impl not in ("auto", "fused"):
-            raise ValueError(f"unknown scan_impl {scan_impl!r}")
+        _check_scan_impl(scan_impl)
         if pass1_method == "approx":
             raise _not_ported("pass1_method='approx'", "item 5")
         if pass1_method not in ("auto", "exact"):
@@ -107,6 +115,7 @@ class IVF:
         self.active_centers = None  # (C, d) f32, the non-empty lists
         self.csr_codes = None     # (T, B_pad/2, 128) uint8 code tiles
         self.csr_ids = None       # (T * 128,) int32, -1 padding
+        self.csr_vecs = None      # (T, d_aug, 128) bf16 (exact engine)
         self.tile_offsets = None  # (C,) int32, list i starts at tile [i]
         self.max_tiles = None     # host int: longest list in tiles
         self.data = None          # (n, d) f32 (normalized when angular)
@@ -174,6 +183,26 @@ class IVF:
         csr_ids = torch.as_tensor(flat_ids, device=self.device)
         self._set_lists(pack_codes_tiled(codes, csr_ids), csr_ids, toff,
                         counts)
+        self.csr_vecs = None
+        return self.set_scan_impl(self.scan_impl)
+
+    def set_scan_impl(self, scan_impl):
+        """Switch the list-scan engine of a built index. The exact
+        engine's vector tiles are derived from (data, csr_ids): they are
+        built here when it is switched on and freed when it is switched
+        off, so archives do not depend on the engine."""
+        _check_scan_impl(scan_impl)
+        if (scan_impl == "exact" and self.csr_vecs is None
+                and self.csr_ids is not None):
+            if self.max_tiles * LANE_TILE > EXACT_MAX_POSITIONS:
+                raise ValueError(
+                    f"exact mode: the longest list ({self.max_tiles} tiles) "
+                    f"exceeds the 16-bit fold position field; raise "
+                    f"n_clusters")
+            self.csr_vecs = _augment_data_csr(self.data, self.csr_ids)
+        elif scan_impl != "exact":
+            self.csr_vecs = None
+        self.scan_impl = scan_impl
         return self
 
     def _set_lists(self, csr_codes, csr_ids, tile_offsets, counts):
@@ -222,26 +251,29 @@ class IVF:
             q = q[None]
         k, n_probes, pass_1, r, r_tail, qc, qc0 = _query_params(
             self, q.shape[0], k, n_probes, pass_1)
-        B_pad = 2 * round_up(self.pq.center_blocks.shape[0] // 2, 8)
-        table_dtype = (torch.int8 if self.pq.table_dtype == "int8"
-                       else torch.bfloat16)
-        try:
-            fold_encoding(table_dtype, B_pad, self.max_tiles)
-        except ValueError as e:
-            raise _not_ported(
-                f"{e}: the JAX package scans such lists with "
-                f"scan_impl='xla', which", "item 5") from e
+        exact = self.scan_impl == "exact"
+        if not exact:
+            B_pad = 2 * round_up(self.pq.center_blocks.shape[0] // 2, 8)
+            table_dtype = (torch.int8 if self.pq.table_dtype == "int8"
+                           else torch.bfloat16)
+            try:
+                fold_encoding(table_dtype, B_pad, self.max_tiles)
+            except ValueError as e:
+                raise _not_ported(
+                    f"{e}: the JAX package scans such lists with "
+                    f"scan_impl='xla', which", "item 5") from e
         attempts = 1 if self.queries_per_cluster else 3
         qc_full, qc0_full = _qc_caps(self, q.shape[0], n_probes, r, r_tail,
                                      qc, qc0)
         for attempt in range(attempts):
             out, dropped = _ivf_query(
-                q, self.pq, self.active_centers, self.csr_codes,
+                q, self.pq, self.active_centers,
+                self.csr_vecs if exact else self.csr_codes,
                 self.csr_ids, self.tile_offsets, self.list_counts,
                 self.data, metric=self.metric, k=k, n_probes=n_probes,
                 pass_1=pass_1, r=r, r_tail=r_tail, qc=qc, qc0=qc0,
                 max_tiles=self.max_tiles, build_probes=self.build_probes,
-                fold_mult=self.fold_mult)
+                fold_mult=self.fold_mult, exact=exact)
             dropped = int(dropped)
             if attempt + 1 == attempts or dropped == 0:
                 break
@@ -267,6 +299,60 @@ class IVF:
         return out
 
 
+def _check_scan_impl(scan_impl):
+    if scan_impl == "xla":
+        raise _not_ported("scan_impl='xla'", "item 5")
+    if scan_impl not in ("auto", "fused", "exact"):
+        raise ValueError(f"unknown scan_impl {scan_impl!r}")
+
+
+def _aug_dim(d: int) -> int:
+    """Width of the exact engine's augmented vectors:
+    [x (d) | hi(|x|^2) | lo(|x|^2) | 1], padded to a multiple of 16."""
+    return round_up(d + 3, 16)
+
+
+def _augment_data_csr(data, flat_ids):
+    """Raw vectors -> the exact engine's CSR tile layout.
+
+    data: f32[n, d] (normalized already for angular); flat_ids:
+    int32[T * 128] CSR row ids (padding reuses row 0, masked by the list
+    counts). Returns bf16[T, d_aug, 128]: points on the last axis,
+    augmented dimensions [x, hi(|x|^2), lo(|x|^2), 1, 0...] on the
+    middle one. The norm rides as a two-term bf16 split (~16
+    significant bits), so with the query side's [-2q, 1, 1, |q|^2] one
+    dot product gives the true squared distance."""
+    d = data.shape[1]
+    rows = data[flat_ids.clamp(min=0).long()]             # (T*128, d) f32
+    xn = torch.einsum("nd,nd->n", rows, rows)
+    hi = xn.to(torch.bfloat16).to(torch.float32)
+    aug = torch.zeros((rows.shape[0], _aug_dim(d)), dtype=torch.float32,
+                      device=data.device)
+    aug[:, :d] = rows
+    aug[:, d] = hi
+    aug[:, d + 1] = xn - hi
+    aug[:, d + 2] = 1.0
+    T = flat_ids.shape[0] // LANE_TILE
+    return (aug.to(torch.bfloat16).reshape(T, LANE_TILE, -1)
+            .transpose(1, 2).contiguous())
+
+
+def _augment_queries(q):
+    """f32[Q, d] -> bf16[Q, d_aug] in the exact engine's query layout
+    [-2q, 1, 1, |q|^2, 0...]. |q|^2 rides in one bf16 slot: its rounding
+    is the same for every point of a query, so it cannot change the
+    ranking."""
+    d = q.shape[1]
+    qn = torch.einsum("qd,qd->q", q, q)
+    aug = torch.zeros((q.shape[0], _aug_dim(d)), dtype=torch.float32,
+                      device=q.device)
+    aug[:, :d] = -2.0 * q
+    aug[:, d] = 1.0
+    aug[:, d + 1] = 1.0
+    aug[:, d + 2] = qn
+    return aug.to(torch.bfloat16)
+
+
 def _fold_tiles(r: int, max_tiles: int, mult: int = FOLD_MULT) -> int:
     """Fold width in 128-lane tiles: ``mult``x headroom over r keeps
     position-class collisions (the fold's approximation) rare; never
@@ -280,12 +366,38 @@ def default_qc0(Q: int, C: int) -> int:
     return max(32, -(-5 * Q // (2 * C)) // 8 * 8 + 8)
 
 
+def _exact_widths(mult, max_tiles, n_active, qc, qc0, k, pass_1,
+                  n_probes=1):
+    """Exact-engine fold widths: (r, r_tail, pass_1) such that
+    _fold_tiles(r) folds round 0 over the whole longest list when the
+    (C, qc0, S) grid stays under ~512 MB, and the tail rounds over a
+    narrower budgeted fold. pass_1 is the rescore sliver, 4 k P by
+    default (near-ties at the selection boundary grow with the number
+    of scanned lists), never below k."""
+    b0_tiles = max(1, (512 << 20)
+                   // (4 * max(n_active, 1) * qc0 * LANE_TILE))
+    bt_tiles = max(1, (512 << 20)
+                   // (4 * max(n_active, 1) * qc * LANE_TILE))
+    base = max(pass_1 if pass_1 is not None else 4 * k * max(n_probes, 1),
+               k)
+    w0 = max(min(max_tiles, b0_tiles),
+             -(-mult * max(4 * k, 32) // LANE_TILE))
+    wt = max(min(max_tiles, bt_tiles,
+                 -(-mult * max(base, 2 * k) // LANE_TILE)),
+             -(-mult * 16 // LANE_TILE))
+    return (-(-w0 * LANE_TILE // mult), -(-wt * LANE_TILE // mult),
+            base)
+
+
 def _query_params(self, Q, k, n_probes, pass_1):
     """(k, n_probes, pass_1, r, r_tail, qc, qc0) for a batch of Q.
 
     r: per-pair candidate depth of each query's nearest list; r_tail:
     the shallower depth of its other probes; qc/qc0: bucket capacities
-    (query slots per list) of the tail rounds and of round 0."""
+    (query slots per list) of the tail rounds and of round 0. In the
+    exact engine r and r_tail only set the fold widths (see
+    ``_exact_widths``): exact distances need no depth against estimate
+    noise, but two of a list's top-k in one fold class lose one."""
     n_active = self.active_centers.shape[0]
     n_probes = min(n_probes, n_active)
     k = min(k, int(self.data.shape[0]))
@@ -293,6 +405,11 @@ def _query_params(self, Q, k, n_probes, pass_1):
     qc = self.queries_per_cluster or max(
         8, round_up(5 * Q * n_probes // (2 * max(n_active, 1)) + 1, 8))
     qc0 = self.queries_per_cluster or default_qc0(Q, n_active)
+    if self.scan_impl == "exact":
+        r, r_tail, pass_1 = _exact_widths(
+            self.fold_mult or FOLD_MULT, self.max_tiles, n_active, qc, qc0,
+            k, pass_1, n_probes=n_probes)
+        return k, n_probes, pass_1, r, r_tail, qc, qc0
     if pass_1 is None:
         pass_1 = (n_probes + 1) * k + 1
     pass_1 = max(pass_1, k)  # p1 feeds a final top-k
@@ -318,13 +435,15 @@ def _qc_caps(self, Q, n_probes, r, r_tail, qc, qc0):
 
 def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
                        list_counts, qc: int, r: int, max_tiles: int,
-                       fold_mult: int):
+                       fold_mult: int, exact: bool = False):
     """One bucketed scan round over a probe subset.
 
     probe_sub: (Q, Ps) list ids. Buckets the (query, probe) pairs by
     list (stable sort + position in run, capacity ``qc`` per list),
     scans every list once for all its queries with ``scan_fold_csr``
-    and hands each pair its fold row. Returns ``(enc int32[Q, Ps, S],
+    (or, ``exact``, with ``scan_exact_csr``: tables_flat then holds the
+    augmented queries and csr_codes the vector tiles) and hands each
+    pair its fold row. Returns ``(enc int32[Q, Ps, S],
     rowbase int64[Q, Ps], dropped)``: the encoded pool, each pair's
     first flat row, and the count of pairs that overflowed a bucket.
     """
@@ -350,9 +469,10 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
     slot_orig = torch.empty_like(slot).scatter_(0, order, slot).reshape(Q, Ps)
 
     t_sel = tables_flat[qgrid.clamp(min=0)]           # (C, qc, M)
-    enc = scan_fold_csr(t_sel, csr_codes, tile_offsets, list_counts,
-                        fold_tiles=_fold_tiles(r, max_tiles, fold_mult),
-                        max_tiles=max_tiles)          # (C, qc, S)
+    scan = scan_exact_csr if exact else scan_fold_csr
+    enc = scan(t_sel, csr_codes, tile_offsets, list_counts,
+               fold_tiles=_fold_tiles(r, max_tiles, fold_mult),
+               max_tiles=max_tiles)                   # (C, qc, S)
     S = enc.shape[2]
     pair_idx = probe_sub * qc + slot_orig.clamp(max=qc - 1)
     my_enc = enc.reshape(C * qc, S)[pair_idx]         # (Q, Ps, S)
@@ -391,8 +511,13 @@ def _select_pool_enc(pools, bases, p1: int, col_bits: int, csr_ids):
 def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
                list_counts, data, *, metric: str, k: int, n_probes: int,
                pass_1: int, r: int, r_tail: int, qc: int, qc0: int,
-               max_tiles: int, build_probes: int, fold_mult: int):
+               max_tiles: int, build_probes: int, fold_mult: int,
+               exact: bool = False):
     """The batched IVF query: returns (ids (Q, k), dropped pairs).
+
+    ``exact``: csr_codes holds the exact engine's vector tiles, stage 1
+    augments the queries in place of building tables, and the scan runs
+    ``scan_exact_csr``.
 
     Stages: (1) distance tables; (2) the P nearest lists by exact fp32
     distance to the active centers; (3) bucketed list scans in two
@@ -406,13 +531,16 @@ def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
     P = n_probes
     if metric == "angular":
         q = q / torch.linalg.norm(q, dim=1, keepdim=True).clamp(min=1e-12)
-    tables = _build_tables(q, pq.center_blocks, pq.R, pq.dims_per_block,
-                           True, pq.table_dtype).tables
-    B = tables.shape[1]
-    tables_flat = permute_tables_csr(tables.reshape(Q, B * 16), B)
-    if tables_flat.dtype == torch.float32:
-        # the float fold encodes bf16 value bits; pre-round
-        tables_flat = tables_flat.to(torch.bfloat16)
+    if exact:
+        tables_flat = _augment_queries(q)
+    else:
+        tables = _build_tables(q, pq.center_blocks, pq.R,
+                               pq.dims_per_block, True, pq.table_dtype).tables
+        B = tables.shape[1]
+        tables_flat = permute_tables_csr(tables.reshape(Q, B * 16), B)
+        if tables_flat.dtype == torch.float32:
+            # the float fold encodes bf16 value bits; pre-round
+            tables_flat = tables_flat.to(torch.bfloat16)
 
     # -- probe selection, exact fp32
     qn = torch.einsum("qd,qd->q", q, q)
@@ -423,13 +551,13 @@ def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
     # -- scan rounds
     v0, rows0, dropped = _bucket_scan_round(
         probe_sel[:, :1], tables_flat, csr_codes, tile_offsets, list_counts,
-        qc=qc0, r=r, max_tiles=max_tiles, fold_mult=fold_mult)
+        qc=qc0, r=r, max_tiles=max_tiles, fold_mult=fold_mult, exact=exact)
     pools, bases = [v0], [rows0]
     if P > 1:
         v1, rows1, drop1 = _bucket_scan_round(
             probe_sel[:, 1:], tables_flat, csr_codes, tile_offsets,
             list_counts, qc=qc, r=r_tail, max_tiles=max_tiles,
-            fold_mult=fold_mult)
+            fold_mult=fold_mult, exact=exact)
         pools.append(v1)
         bases.append(rows1)
         dropped = dropped + drop1
@@ -438,8 +566,8 @@ def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
     f = min(build_probes, n_probes)
     width = sum(p.shape[1] * p.shape[2] for p in pools)
     p1 = min(f * pass_1, width)
-    col_bits, _ = fold_encoding(tables_flat.dtype, tables_flat.shape[1] // 16,
-                                max_tiles)
+    col_bits = 16 if exact else fold_encoding(
+        tables_flat.dtype, tables_flat.shape[1] // 16, max_tiles)[0]
     cand = _select_pool_enc(pools, bases, p1, col_bits, csr_ids)
 
     # -- exact fp32 rescore (+ dedup of build-spill duplicates)

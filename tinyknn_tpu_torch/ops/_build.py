@@ -19,11 +19,13 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+KERNELS = ("scan_fold_csr", "scan_exact_csr", "estimate_scan_tiled")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -69,3 +71,10 @@ def build(name: str) -> Build:
             raise RuntimeError(f"nvcc failed to build {src}:\n{log}")
         os.replace(tmp, so)  # atomic: concurrent builders both succeed
     return Build(ctypes.CDLL(str(so)), so, seconds, log)
+
+
+def build_all(names=KERNELS) -> dict[str, Build]:
+    """``build`` several sources at once: one nvcc process each, all
+    started together. Returns {name: Build}."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))

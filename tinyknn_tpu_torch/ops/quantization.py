@@ -89,3 +89,17 @@ def tables_bf16(dists):
         dists.to(torch.bfloat16),
         torch.zeros((Q,), dtype=torch.float32, device=dists.device),
         torch.ones((Q,), dtype=torch.float32, device=dists.device), True)
+
+
+def dequantize_estimates(est, qt: QuantizedTables):
+    """int32 (or f32) table sums -> approximate squared distances.
+
+    Table entry b holds (||q_b - center_b||^2 - shift) * scale (stored
+    minus 128 in the unsigned scheme), so a sum over the B blocks
+    de-quantizes to est / scale + B * shift. Float tables have identity
+    shift and scale."""
+    B = qt.n_blocks
+    est = est.to(torch.float32)
+    if not qt.signed:
+        est = est + 128.0 * B
+    return est / qt.scale[..., None] + B * qt.shift[..., None]
