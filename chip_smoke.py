@@ -25,10 +25,27 @@ In order, and stopping at the first failure with a non-zero exit:
    int8 p1=21), grades recall10@10 against the checked-in f64 ground
    truth, checks K1 ran on every query, and repeats the K1 check on the
    path's own round-0 inputs, timing K1 against its plain version there;
+4b. serving path, on the same index: ``query_stream`` at int8 p1=84 and
+   bf16 p1=17 (the 10k queries stacked R = 2 and 7 times, as bench.py
+   builds its streams; batch 0 must equal ``query()``'s ids, no pair may
+   drop, one K1 launch per batch, and the stream's first K1 call holds
+   against the plain version; sustained rates consumed on the device
+   and delivered to the host), one warm ``device_out`` call under
+   ``torch.cuda.set_sync_debug_mode("error")``, ``rescore_rows`` at the
+   three phase-4 points (identical ids, as many K1 launches as with the
+   flag off), gather against bucket mode (median times at Q = 1, 8, 64;
+   gather recall on 1,024 queries at most 0.02 below bucket's),
+   ``scan_impl='xla'`` (recall >= 0.68, no kernel launch),
+   ``tune_n_probes`` (recall >= 0.9; each K1 shape it gives, the tail
+   round of P=2 included, against the plain version), ``save_ivf`` ->
+   ``load_ivf`` (identical ids) and ``Flat`` (recall >= 0.999);
 5. exact path: switches that index to the exact engine (build_probes=1,
    P=1), then rebuilds it with build_probes=2 (P=1 and P=2), grades
    recall10@10, checks K2 ran, and holds and times K2 against its plain
-   version on the round-0 inputs;
+   version on the round-0 inputs. Its serving surface (5b): the stream
+   (R = 2, recall >= 0.96, one K2 launch per batch, its first K2 call
+   against the plain version), ``rescore_rows`` at build_probes 1 and 2
+   (identical ids) and exact gather mode (the rule of 4b);
 6. full-scan path: FastPQ(2, rotate_dim=None) on the reference's own
    example (random 16,000 x 128, 1,000 queries, seed 10): true-NN rank
    of the full-scan estimates, search recall1@10 for methods 'exact'
@@ -43,8 +60,13 @@ In order, and stopping at the first failure with a non-zero exit:
    its pass-1 sort timed alone, and the same batch with 'approx'.
 
 Every path is driven with the launch counts set to 0 just before it and
-read just after. Times are host clock ending in a synchronize, or CUDA
-events for kernels (in turns: plain, kernel, kernel, plain). Every
+read just after; it fails if its kernel did not launch (gather mode,
+'xla' and ``Flat`` run none) or a plain version ran on a CUDA tensor.
+The calls a path is compared with (``query()`` beside the stream, the
+flag-off runs beside ``rescore_rows``, the original index beside the
+loaded one) run outside its window.
+Times are host clock ending in a synchronize, or CUDA events for
+kernels (in turns: plain, kernel, kernel, plain). Every
 timed IVF query and the reference example's search calls also get a
 torch.profiler stage profile: device time per kernel.
 
@@ -79,6 +101,21 @@ EXACT_GATES = (0.96, 0.97, 0.005)
 FULL_SCAN = dict(n=16000, d=128, n_queries=1000, seed=10)
 FULL_SCAN_GATES = (3.0, 25.0, 0.90)
 K3_QUERIES = 1000
+# serving surface (phases 4b and 5b): query_stream at the north-star
+# points, stacked R times as bench.py does; gather against bucket mode
+# (the JAX package's tests allow gather 0.02 below bucket); the 'xla'
+# engine gated like the fused path; tune_n_probes; Flat against the f64
+# truth
+STREAM_POINTS = (("int8", 84), ("bf16", 17))
+STREAM_REPS = (2, 7)
+GATHER_QS = (1, 8, 64)
+GATHER_TIMED_CALLS = 20
+GATHER_RECALL_QUERIES = 1024
+GATHER_SLACK = 0.02
+XLA_GATE = 0.68
+TUNE_QUERIES = 1000
+TUNE_TARGET = 0.9
+FLAT_GATE = 0.999
 KERNEL_TIMED_LAUNCHES = 50
 K3_TIMED_LAUNCHES = 5
 PLAIN_TIMED_LAUNCHES = 3
@@ -438,13 +475,24 @@ def read_counts(path: str) -> dict:
     return counts
 
 
-def capture_first(module, name: str, store: dict):
-    """Wrap ``module.<name>`` so that its first call's arguments are kept
-    in ``store``; returns a function that undoes the wrap."""
+def by_dtype(args, kw):
+    return args[0].dtype
+
+
+def by_shape(args, kw):
+    """A scan call's table type, query slots and fold width: round 0,
+    the tail round and each retry capacity are told apart."""
+    return args[0].dtype, tuple(args[0].shape), kw["fold_tiles"]
+
+
+def capture_first(module, name: str, store: dict, key=by_dtype):
+    """Wrap ``module.<name>`` so that the first call's arguments of each
+    ``key(args, kw)`` are kept in ``store``; returns a function that
+    undoes the wrap."""
     original = getattr(module, name)
 
     def wrapped(*args, **kw):
-        store.setdefault(args[0].dtype, (args, kw))
+        store.setdefault(key(args, kw), (args, kw))
         return original(*args, **kw)
 
     def undo():
@@ -530,6 +578,356 @@ def pq_path(ivf, data, queries, truth, card):
     return summary, launches, err, round0
 
 
+def best_of(fn, reps: int = 3) -> float:
+    """Best host-clock seconds of ``reps`` calls, each ending in a sync."""
+    best = float("inf")
+    for _ in range(reps):
+        _, t = timed(fn)
+        best = min(best, t)
+    return best
+
+
+def median_ms(fn, n: int) -> float:
+    """Median host-clock milliseconds of n warm calls, each ending in a
+    sync."""
+    fn()
+    return float(np.median([timed(fn)[1] for _ in range(n)])) * 1e3
+
+
+def stream_of(qd, R: int):
+    """bench.py's stream: the queries stacked R times, batch r offset by
+    r * 1e-6 (batch 0 is the queries themselves)."""
+    import torch
+    return qd[None] + (torch.arange(R, dtype=torch.float32, device=qd.device)
+                       * 1e-6)[:, None, None]
+
+
+def hold_captured(label, calls: dict, exact_engine: bool = False) -> float:
+    """Each captured K1 call (K2 with ``exact_engine``) of a path against
+    the plain version on the same inputs, by the rule of phases 4 and 5:
+    int8 tables bit-equal; bf16 tables and K2 values within 1 bf16 ulp,
+    positions equal where the values are. Returns the largest value
+    error."""
+    import torch
+    from tinyknn_tpu_torch.ops import kernels as k
+    kernel, plain, name = (
+        (k.scan_exact_csr, k.scan_exact_csr_reference, "K2") if exact_engine
+        else (k.scan_fold_csr, k.scan_fold_csr_reference, "K1"))
+    if not calls:
+        raise AssertionError(f"{label}: no {name} call was captured")
+    err = 0.0
+    for args, kw in calls.values():
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        torch_sync()
+        t = args[0]
+        bf16 = exact_engine or t.dtype == torch.bfloat16
+        e = compare_fold(got, want, bf16, not bf16,
+                         0 if exact_engine else t.shape[2] // 16,
+                         kw["max_tiles"])
+        del got, want
+        err = max(err, e)
+        print(f"  {name} check, {label}: {t.dtype} {tuple(t.shape)}, "
+              f"fold_tiles {kw['fold_tiles']}: ok (max value error {e})")
+    return err
+
+
+def stream_point(ivf, qd, truth, p1, card):
+    """query_stream at one operating point, P=1: batch 0 against query()
+    on the same queries, the floors against query()'s retry, and
+    bench.py's sustained rates (marginal between R=2 and R=7), consumed
+    on the device and delivered to the host. Only the stream's own calls
+    are counted: one K1 launch per batch (P=1 scans round 0 only), and
+    its first K1 call is held against the plain version. Returns
+    (summary, launches, max value error)."""
+    import torch
+    import tinyknn_tpu_torch.models.ivf as ivf_module
+    kw = dict(k=10, n_probes=1, pass_1=p1)
+    # the reference answer, outside the counted window
+    ids_q, st_q = ivf.query(qd, mode="bucket", with_stats=True, **kw)
+    dev_s, host_s, out = {}, {}, {}
+    batches, captured = [0], {}
+
+    def call(stream, **extra):
+        batches[0] += stream.shape[0]
+        return ivf.query_stream(stream, **kw, **extra)
+
+    label = f"query_stream {ivf.pq.table_dtype} p1={p1}"
+    reset_counts()
+    undo = capture_first(ivf_module, "scan_fold_csr", captured)
+    for R in STREAM_REPS:
+        stream = stream_of(qd, R)
+        out[R] = call(stream, with_stats=True)
+        dev = lambda: int(call(stream, device_out=True)[0].sum())  # noqa
+        host = lambda: call(stream).cpu()  # noqa: E731
+        dev()
+        dev_s[R], host_s[R] = best_of(dev), best_of(host)
+    undo()
+    launches = read_counts(label)["scan_fold_csr"]
+    if launches != batches[0]:
+        raise AssertionError(f"{label}: {launches} K1 launches for "
+                             f"{batches[0]} batches at P=1")
+    err = hold_captured(label, captured)
+    ids, st = out[STREAM_REPS[0]]
+    lo, hi = STREAM_REPS
+
+    def rate(t):
+        marg = (t[hi] - t[lo]) / (hi - lo) if t[hi] > t[lo] else t[hi] / hi
+        return GLOVE["n_queries"] / marg
+
+    rec = recall_at_10(ids[0], truth)
+    drops = (st["dropped_probe_pairs"], st_q["dropped_probe_pairs"],
+             out[hi][1]["dropped_probe_pairs"])
+    print(f"  {ivf.pq.table_dtype} p1={p1}: floors (qc0, qc) "
+          f"{st['adaptive_qc_floors']}, stream qc0/qc "
+          f"{st['queries_per_cluster_cap_round0']}/"
+          f"{st['queries_per_cluster_cap']} vs query()'s "
+          f"{st_q['queries_per_cluster_cap_round0']}/"
+          f"{st_q['queries_per_cluster_cap']} after its retry; dropped "
+          f"pairs stream R={lo} {drops[0]}, R={hi} {drops[2]}, query() "
+          f"{drops[1]}; batch-0 recall10@10 {rec:.4f}")
+    print(f"    best of 3, R={lo} / R={hi}: device_out {dev_s[lo]:.4f} / "
+          f"{dev_s[hi]:.4f} s, host {host_s[lo]:.4f} / {host_s[hi]:.4f} s; "
+          f"sustained {rate(dev_s):.0f} QPS consumed on the device, "
+          f"{rate(host_s):.0f} QPS delivered to the host {card}")
+    if any(drops):
+        raise AssertionError(f"dropped pairs at p1={p1}: {drops}")
+    if not torch.equal(ids[0], ids_q):
+        raise AssertionError(f"stream batch 0 differs from query() at "
+                             f"p1={p1}")
+    return dict(table_dtype=ivf.pq.table_dtype, pass_1=p1,
+                floors=list(st["adaptive_qc_floors"]),
+                qc0=st["queries_per_cluster_cap_round0"],
+                qc=st["queries_per_cluster_cap"],
+                query_qc0=st_q["queries_per_cluster_cap_round0"],
+                recall=rec, device_s=dev_s, host_s=host_s,
+                device_qps=rate(dev_s),
+                delivered_qps=rate(host_s)), launches, err
+
+
+def rescore_rows_check(ivf, qd, card, label, kernel, **kw):
+    """Warm bucket batches with rescore_rows off and on: identical ids.
+    Off and on are counted in windows of their own; the flag-on calls
+    must launch ``kernel`` as often as the flag-off ones (the same
+    scans). Returns (summary, flag-on launches)."""
+    import torch
+    run = lambda: ivf.query(qd, k=10, n_probes=1,  # noqa: E731
+                            mode="bucket", **kw)
+    reset_counts()
+    timed(run)
+    off, t_off = timed(run)
+    n_off = read_counts(f"rescore_rows off, {label}")[kernel]
+    _, t_switch = timed(lambda: ivf.set_rescore_rows(True))
+    raw_mb = ivf.csr_raw.numel() * ivf.csr_raw.element_size() / 1e6
+    reset_counts()
+    timed(run)
+    on, t_on = timed(run)
+    n_on = read_counts(f"rescore_rows on, {label}")[kernel]
+    ivf.set_rescore_rows(False)
+    same = torch.equal(on, off)
+    print(f"  rescore_rows {label}: ids identical {same}; csr_raw "
+          f"{raw_mb:.0f} MB built in {t_switch:.3f} s; warm batch "
+          f"{t_off * 1e3:.3f} ms off, {t_on * 1e3:.3f} ms on {card}")
+    if not same:
+        raise AssertionError(f"rescore_rows changed the ids at {label}")
+    if n_on == 0 or n_on != n_off:
+        raise AssertionError(f"rescore_rows {label}: {n_on} {kernel} "
+                             f"launches on, {n_off} off")
+    return dict(label=label, csr_raw_mb=raw_mb, off_ms=t_off * 1e3,
+                on_ms=t_on * 1e3), n_on
+
+
+def gather_recall(ivf, qd, truth, label, **kw):
+    """recall10@10 of gather and bucket mode on the first queries, in
+    calls of 64; gather may fall at most GATHER_SLACK below bucket.
+    Gather runs no kernel; bucket runs K1 or K2."""
+    import torch
+    n, step = GATHER_RECALL_QUERIES, 64
+    rec, launches = {}, {}
+    for mode in ("gather", "bucket"):
+        reset_counts()
+        ids = [ivf.query(qd[i:i + step], k=10, n_probes=1, mode=mode, **kw)
+               for i in range(0, n, step)]
+        launches[mode] = read_counts(f"{label}, {mode} mode")
+        rec[mode] = recall_at_10(torch.cat(ids), truth[:n])
+    print(f"  {label}: recall10@10 over {n} queries in calls of {step}: "
+          f"gather {rec['gather']:.4f}, bucket {rec['bucket']:.4f}")
+    if rec["gather"] < rec["bucket"] - GATHER_SLACK:
+        raise AssertionError(f"{label}: gather recall {rec['gather']:.4f} "
+                             f"more than {GATHER_SLACK} below bucket's")
+    if any(launches["gather"].values()):
+        raise AssertionError(f"{label}: gather mode launched a kernel")
+    return rec, launches
+
+
+def serving_path(ivf, data, queries, truth, card):
+    """Phase 4b: the serving surface on the phase-4 index (PQ engine,
+    build_probes=1): query_stream, device_out under sync-debug,
+    rescore_rows, gather against bucket, the 'xla' engine,
+    tune_n_probes, a save/load round trip, and Flat."""
+    import tempfile
+
+    import torch
+    from tinyknn_tpu_torch import Flat, load_ivf, save_ivf
+    from tinyknn_tpu_torch.models.ivf import tune_n_probes
+    import tinyknn_tpu_torch.models.ivf as ivf_module
+    qd = torch.as_tensor(queries, device=ivf.device)
+    out, launches, err = {}, {}, 0.0
+
+    print("serving path, query_stream (P=1):")
+    out["stream"], launches["stream"] = [], 0
+    for table_dtype, p1 in STREAM_POINTS:
+        ivf.pq.table_dtype = table_dtype
+        summary, n, e = stream_point(ivf, qd, truth, p1, card)
+        out["stream"].append(summary)
+        launches["stream"] += n
+        err = max(err, e)
+
+    # a warm device_out call, floors cached: no host sync may happen
+    p1 = STREAM_POINTS[-1][1]
+    stream = stream_of(qd, STREAM_REPS[0])
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ids, dropped = ivf.query_stream(stream, k=10, n_probes=1, pass_1=p1,
+                                        device_out=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches["device_out"] = read_counts("device_out")["scan_fold_csr"]
+    if ids.device.type != ivf.device.type or ids.dtype != torch.int32:
+        raise AssertionError(f"device_out gave {ids.dtype} on {ids.device}")
+    if launches["device_out"] != STREAM_REPS[0]:
+        raise AssertionError(f"device_out: {launches['device_out']} K1 "
+                             f"launches for {STREAM_REPS[0]} batches")
+    print(f"  device_out under set_sync_debug_mode('error'): no sync; "
+          f"{tuple(ids.shape)} int32 on {ids.device}, dropped {int(dropped)}")
+
+    print("serving path, rescore_rows:")
+    out["rescore_rows"], launches["rescore_rows"] = [], 0
+    for table_dtype, p1, _ in POINTS:
+        ivf.pq.table_dtype = table_dtype
+        summary, n = rescore_rows_check(ivf, qd, card,
+                                        f"{table_dtype} p1={p1}",
+                                        "scan_fold_csr", pass_1=p1)
+        out["rescore_rows"].append(summary)
+        launches["rescore_rows"] += n
+
+    print("serving path, gather against bucket (int8 p1=84, P=1):")
+    ivf.pq.table_dtype, p1 = "int8", 84
+    times = {}
+    for Q in GATHER_QS:
+        for mode in ("gather", "bucket"):
+            times[Q, mode] = median_ms(lambda: ivf.query(
+                qd[:Q], k=10, n_probes=1, pass_1=p1, mode=mode),
+                GATHER_TIMED_CALLS)
+        faster = min(("gather", "bucket"), key=lambda m: times[Q, m])
+        print(f"  Q={Q}: gather {times[Q, 'gather']:.3f} ms, bucket "
+              f"{times[Q, 'bucket']:.3f} ms (median of "
+              f"{GATHER_TIMED_CALLS}); {faster} faster {card}")
+    rec, gl = gather_recall(ivf, qd, truth, "PQ gather", pass_1=p1)
+    launches["gather_bucket"] = gl["bucket"]["scan_fold_csr"]
+    if launches["gather_bucket"] == 0:
+        raise AssertionError("bucket mode did not run on K1")
+    out["gather"] = dict(ms={f"{Q}/{m}": t for (Q, m), t in times.items()},
+                         recall=rec)
+
+    print("serving path, scan_impl='xla' (int8 p1=84):")
+    ivf.set_scan_impl("xla")
+    reset_counts()
+    run = lambda: ivf.query(qd, k=10, n_probes=1, pass_1=p1,  # noqa: E731
+                            mode="bucket", with_stats=True)
+    timed(run)
+    (ids, st), t_xla = timed(run)
+    xla = read_counts("'xla' engine")
+    ivf.set_scan_impl("auto")
+    rec = recall_at_10(ids, truth)
+    _, t_fused = timed(lambda: ivf.query(qd, k=10, n_probes=1, pass_1=p1,
+                                         mode="bucket"))
+    print(f"  recall10@10 {rec:.4f}; warm batch {t_xla * 1e3:.3f} ms "
+          f"('fused' {t_fused * 1e3:.3f} ms) {card}; dropped pairs "
+          f"{st['dropped_probe_pairs']}, qc0 "
+          f"{st['queries_per_cluster_cap_round0']}")
+    if rec < XLA_GATE:
+        raise AssertionError(f"'xla' recall {rec:.4f} < {XLA_GATE}")
+    if any(xla.values()):
+        raise AssertionError("the 'xla' engine launched a kernel")
+    out["xla"] = dict(recall=rec, ms=t_xla * 1e3, fused_ms=t_fused * 1e3)
+
+    n_tune = TUNE_QUERIES
+    print(f"serving path, tune_n_probes ({n_tune} queries, k=10, target "
+          f"{TUNE_TARGET}):")
+    # every distinct K1 shape the tuner gives (round 0 at each capacity,
+    # and the tail round of its P > 1 points) is held against the plain
+    # version; the tail round's slot count is _query_params' qc at P=2
+    tune_calls = {}
+    reset_counts()
+    undo = capture_first(ivf_module, "scan_fold_csr", tune_calls, by_shape)
+    res, t_tune = timed(lambda: tune_n_probes(ivf, qd[:n_tune],
+                                              truth[:n_tune], k=10,
+                                              target_recall=TUNE_TARGET))
+    undo()
+    launches["tune"] = read_counts("tune_n_probes")["scan_fold_csr"]
+    print(f"  {res.n_probes=} {res.pass_1=} {res.recall=:.4f} in "
+          f"{t_tune:.2f} s; measured {res.recalls}")
+    if res.recall < TUNE_TARGET:
+        raise AssertionError(f"tune_n_probes recall {res.recall} < "
+                             f"{TUNE_TARGET}")
+    rounds = sum(1 if P == 1 else 2 for P, _ in res.recalls)
+    if launches["tune"] < rounds:
+        raise AssertionError(f"tune_n_probes: {launches['tune']} K1 "
+                             f"launches for {rounds} scan rounds")
+    if max(P for P, _ in res.recalls) > 1:
+        qc_tail = ivf_module._query_params(ivf, n_tune, 10, 2, None)[5]
+        if not any(key[1][1] == qc_tail for key in tune_calls):
+            raise AssertionError(f"tune_n_probes: no tail-round K1 call "
+                                 f"({qc_tail} slots) was captured")
+    err = max(err, hold_captured("tune_n_probes", tune_calls))
+    out["tune"] = dict(n_probes=res.n_probes, pass_1=res.pass_1,
+                       recall=res.recall, seconds=t_tune)
+
+    print("serving path, save_ivf -> load_ivf:")
+    q1k = qd[:TUNE_QUERIES]
+    reset_counts()
+    want = ivf.query(q1k, k=10, n_probes=1, pass_1=p1)
+    n_want = read_counts("round trip, original index")["scan_fold_csr"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "index.npz"
+        _, t_save = timed(lambda: save_ivf(path, ivf))
+        size_mb = path.stat().st_size / 1e6
+        back, t_load = timed(lambda: load_ivf(path, ivf.device))
+    reset_counts()
+    got = back.query(q1k, k=10, n_probes=1, pass_1=p1)
+    launches["round_trip"] = read_counts(
+        "round trip, loaded index")["scan_fold_csr"]
+    del back
+    same = torch.equal(got, want)
+    print(f"  archive {size_mb:.1f} MB, save {t_save:.2f} s, load "
+          f"{t_load:.2f} s {card}; ids on {TUNE_QUERIES} queries identical "
+          f"{same}")
+    if not same:
+        raise AssertionError("the round trip changed the ids")
+    if launches["round_trip"] == 0 or launches["round_trip"] != n_want:
+        raise AssertionError(f"round trip: {launches['round_trip']} K1 "
+                             f"launches on the loaded index, {n_want} on "
+                             f"the original")
+    out["round_trip"] = dict(mb=size_mb, save_s=t_save, load_s=t_load)
+
+    print("serving path, Flat('angular'):")
+    reset_counts()
+    flat = Flat("angular", device=ivf.device).build(data)
+    ids, t_flat = timed(lambda: flat.query(qd, k=10))
+    del flat
+    read_counts("Flat")
+    rec = recall_at_10(ids, truth)
+    print(f"  recall10@10 {rec:.4f} against the f64 truth; "
+          f"{GLOVE['n_queries']} queries in {t_flat:.3f} s {card}")
+    if rec < FLAT_GATE:
+        raise AssertionError(f"Flat recall {rec:.4f} < {FLAT_GATE}")
+    out["flat"] = dict(recall=rec, seconds=t_flat)
+    ivf.pq.table_dtype = "int8"
+    return out, launches, err
+
+
 def exact_query(ivf, queries, truth, P: int, card: str, label: str):
     run = lambda: ivf.query(queries, k=10, n_probes=P, mode="bucket",  # noqa
                             with_stats=True)
@@ -575,6 +973,44 @@ def exact_path(ivf, data, queries, truth, card):
     if launches == 0:
         raise AssertionError("the exact path did not run on K2")
 
+    # phase 5b: the serving surface on the exact engine
+    qd = torch.as_tensor(queries, device=ivf.device)
+    serving, serving_launches = {}, {}
+    stream_calls = {}
+    stream = stream_of(qd, STREAM_REPS[0])
+    run = lambda: ivf.query_stream(stream, k=10, n_probes=1,  # noqa: E731
+                                   with_stats=True)
+    reset_counts()
+    undo = capture_first(ivf_module, "scan_exact_csr", stream_calls)
+    timed(run)
+    (ids, st), t_stream = timed(run)
+    undo()
+    serving_launches["stream"] = read_counts(
+        "exact path, query_stream")["scan_exact_csr"]
+    # two calls of R batches, one K2 launch per batch at P=1
+    if serving_launches["stream"] != 2 * STREAM_REPS[0]:
+        raise AssertionError(f"the exact stream made "
+                             f"{serving_launches['stream']} K2 launches "
+                             f"for {2 * STREAM_REPS[0]} batches")
+    e_stream = hold_captured("exact query_stream", stream_calls, True)
+    rec = recall_at_10(ids[0], truth)
+    print(f"  query_stream R={STREAM_REPS[0]}, P=1: batch-0 recall10@10 "
+          f"{rec:.4f}, batch 1 {recall_at_10(ids[1], truth):.4f}; warm "
+          f"{t_stream:.4f} s {card}; floors {st['adaptive_qc_floors']}, "
+          f"qc0 {st['queries_per_cluster_cap_round0']}, dropped pairs "
+          f"{st['dropped_probe_pairs']}")
+    if rec < g1:
+        raise AssertionError(f"exact stream recall {rec:.4f} < {g1}")
+    serving["stream"] = dict(recall=rec, seconds=t_stream,
+                             floors=list(st["adaptive_qc_floors"]))
+    summary, serving_launches["rescore_rows"] = rescore_rows_check(
+        ivf, qd, card, "exact, build_probes=1 P=1", "scan_exact_csr")
+    serving["rescore_rows"] = [summary]
+    serving["gather"], gl = gather_recall(ivf, qd, truth, "exact gather")
+    serving_launches["gather_bucket"] = gl["bucket"]["scan_exact_csr"]
+    if not serving_launches["gather_bucket"]:
+        raise AssertionError("exact bucket mode did not run on K2")
+
     reset_counts()
     _, t_build = timed(lambda: ivf.build(data, n_probes=2))
     counts = ivf.list_counts.cpu().numpy()
@@ -594,6 +1030,9 @@ def exact_path(ivf, data, queries, truth, card):
                              f"below P=1")
     if launches2 == 0:
         raise AssertionError("the build_probes=2 exact path did not run K2")
+    summary, serving_launches["rescore_rows_bp2"] = rescore_rows_check(
+        ivf, qd, card, "exact, build_probes=2 P=1", "scan_exact_csr")
+    serving["rescore_rows"].append(summary)
 
     print("K2 check, exact path round-0 inputs:")
     args, kw = captured[torch.bfloat16]
@@ -611,9 +1050,11 @@ def exact_path(ivf, data, queries, truth, card):
                                 KERNEL_TIMED_LAUNCHES)
     print(f"  times: kernel {four[0]:.4f} / {four[1]:.4f} ms, plain "
           f"{four[2]:.4f} / {four[3]:.4f} ms per call {card}")
+    err = max(err, e_stream)
     summary = {"set_scan_impl_s": t_switch, "build_bp2_s": t_build,
-               "queries": [bp1] + bp2, "peak_gib": peak_gb}
-    return summary, launches, err, (k_ms, p_ms)
+               "queries": [bp1] + bp2, "peak_gib": peak_gb,
+               "serving": serving}
+    return summary, launches, err, (k_ms, p_ms), serving_launches
 
 
 def true_nn_ranks(est, truth):
@@ -887,9 +1328,15 @@ def main() -> int:
                                               card)
     err["scan_fold_csr"] = max(err["scan_fold_csr"], e1)
 
-    # -- 5. exact path (K2)
-    exact_sum, k2_launches, e2, k2_times = exact_path(ivf, data, queries,
-                                                      truth, card)
+    # -- 4b. serving surface on the same index (K1; gather, 'xla', Flat
+    # run no kernel)
+    serving_sum, k1_serving, e1 = serving_path(ivf, data, queries, truth,
+                                               card)
+    err["scan_fold_csr"] = max(err["scan_fold_csr"], e1)
+
+    # -- 5. exact path (K2), with its serving surface (5b)
+    exact_sum, k2_launches, e2, k2_times, k2_serving = exact_path(
+        ivf, data, queries, truth, card)
     err["scan_exact_csr"] = max(err["scan_exact_csr"], e2)
 
     # -- 6. full-scan path (K3, and K1 through fold_topk_tiled)
@@ -905,7 +1352,8 @@ def main() -> int:
 
     k1_ms, p1_ms = round0[torch.int8]
     kb_ms, pb_ms = round0.get(torch.bfloat16, (None, None))
-    print(json.dumps({"pq_path": pq_sum, "exact_path": exact_sum,
+    print(json.dumps({"pq_path": pq_sum, "serving_path": serving_sum,
+                      "exact_path": exact_sum,
                       "full_scan": fs_sum, "k3_real_size": k3_sum,
                       "card": smi}))
     print(smi)
@@ -914,9 +1362,11 @@ def main() -> int:
                               bf16_ms=kb_ms, bf16_plain_ms=pb_ms,
                               approx_route_launches=k1_approx_launches,
                               approx_route_ms=k1_fs_times[0],
-                              approx_route_plain_ms=k1_fs_times[1]),
+                              approx_route_plain_ms=k1_fs_times[1],
+                              serving_launches=k1_serving),
         "scan_exact_csr": dict(launches=k2_launches, ms=k2_times[0],
-                               plain_ms=k2_times[1]),
+                               plain_ms=k2_times[1],
+                               serving_launches=k2_serving),
         "estimate_scan_tiled": dict(launches=k3_launches, ms=k3_times[0],
                                     plain_ms=k3_times[1],
                                     full_scan_ms=k3_fs_times[0],

@@ -14,6 +14,11 @@ practice they are bit-equal too). K2 ``scan_exact_csr``: bit-equal on
 integer-valued inputs, within 1 bf16 ulp (positions equal where the
 values are) on random ones. K3 ``estimate_scan_tiled``: bit-equal for
 int8 tables, rtol 1e-6 for bf16 and f32 tables.
+
+The serving surface on the card: the stream and ``rescore_rows`` give
+``query()``'s ids through K1/K2; gather mode and the 'xla' engine run
+no kernel and no plain kernel version; a warm ``device_out`` stream
+call makes no host sync.
 """
 
 import pytest
@@ -126,3 +131,77 @@ def test_estimate_kernel_rejects_bad_input(cuda):
         estimate_scan_tiled(codes_tiled.cpu(), t)
     with pytest.raises(TypeError):
         estimate_scan_tiled(codes_tiled, t.double())
+
+
+# ------------------------------------------------- serving surface
+
+
+def _cuda_index(cuda, scan_impl="auto", bp=2, metric="angular"):
+    from tinyknn_tpu_torch import IVF, FastPQ, make_clustered
+    X, qs = make_clustered(3000, 16, 128, seed=41)
+    ivf = IVF(metric, 24, FastPQ(2, device=cuda), scan_impl=scan_impl,
+              device=cuda).fit(X).build(X, n_probes=bp)
+    return ivf, torch.as_tensor(qs, device=cuda)
+
+
+def _plain_calls():
+    return (scan_fold_csr_reference.cuda_calls,
+            scan_exact_csr_reference.cuda_calls,
+            estimate_scan_tiled_reference.cuda_calls)
+
+
+@pytest.mark.parametrize("scan_impl", ["fused", "exact"])
+def test_stream_and_rescore_rows_match_query(cuda, scan_impl):
+    """On the card the stream's batches and the rescore_rows path give
+    query()'s ids, through K1 or K2 and never a plain version."""
+    ivf, qs = _cuda_index(cuda, scan_impl)
+    kernel = scan_exact_csr if scan_impl == "exact" else scan_fold_csr
+    plain, launches = _plain_calls(), kernel.launches
+    want, st = ivf.query(qs, k=8, n_probes=1, mode="bucket", with_stats=True)
+    stream = torch.stack([qs, qs])
+    got, sst = ivf.query_stream(stream, k=8, n_probes=1, with_stats=True)
+    assert st["dropped_probe_pairs"] == sst["dropped_probe_pairs"] == 0
+    if scan_impl == "fused":     # exact fold widths follow the capacities
+        assert torch.equal(got[0], want) and torch.equal(got[1], want)
+    for P in (1, 3):
+        ivf.set_rescore_rows(False)
+        off = ivf.query(qs, k=8, n_probes=P, mode="bucket")
+        ivf.set_rescore_rows(True)
+        assert torch.equal(ivf.query(qs, k=8, n_probes=P, mode="bucket"), off)
+    assert kernel.launches > launches and _plain_calls() == plain
+
+
+@pytest.mark.parametrize("scan_impl", ["fused", "xla", "exact"])
+def test_gather_and_xla_run_no_plain_kernel(cuda, scan_impl):
+    """Gather mode and the 'xla' engine are plain torch by design: on
+    CUDA tensors they launch no kernel and no plain kernel version."""
+    ivf, qs = _cuda_index(cuda, scan_impl)
+    counts = (scan_fold_csr.launches, scan_exact_csr.launches,
+              estimate_scan_tiled.launches)
+    plain = _plain_calls()
+    ids, st = ivf.query(qs[:16], k=8, n_probes=3, mode="gather",
+                        with_stats=True)
+    assert st["mode"] == "gather" and ids.device.type == "cuda"
+    if scan_impl == "xla":
+        ids = ivf.query(qs, k=8, n_probes=3, mode="bucket")
+        assert ids.device.type == "cuda" and (ids >= 0).all()
+    assert (scan_fold_csr.launches, scan_exact_csr.launches,
+            estimate_scan_tiled.launches) == counts
+    assert _plain_calls() == plain
+
+
+def test_device_out_stream_never_syncs(cuda):
+    """With the floors cached, a device_out stream call waits for
+    nothing on the host."""
+    ivf, qs = _cuda_index(cuda)
+    stream = torch.stack([qs, qs + 1e-6])
+    ivf.query_stream(stream, k=8, n_probes=2)          # measures the floors
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, dropped = ivf.query_stream(stream, k=8, n_probes=2,
+                                        device_out=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.device.type == "cuda" and out.dtype == torch.int32
+    assert dropped.device.type == "cuda" and int(dropped) == 0

@@ -54,7 +54,7 @@ def test_port_serves_jax_index(tmp_path, metric, bp, table_dtype, n, d, C):
     assert port.max_tiles == jax_ivf.max_tiles
     for P in (1, 3):
         a = np.asarray(jax_ivf.query(qs, k=10, n_probes=P, mode="bucket"))
-        b = port.query(qs, k=10, n_probes=P)
+        b = port.query(qs, k=10, n_probes=P, mode="bucket")
         assert b.dtype == torch.int32 and b.device.type == "cpu"
         _assert_same_distances(jax_ivf, a, b.numpy(), qs)
 
@@ -68,7 +68,8 @@ def test_skewed_batch_escalates_like_jax(tmp_path):
     qs = (X[5] + 0.01 * rng.standard_normal((200, 16))).astype(np.float32)
     a, sa = jax_ivf.query(qs, 10, n_probes=2, mode="bucket",
                           with_stats=True)
-    b, sb = port.query(qs, 10, n_probes=2, with_stats=True)
+    b, sb = port.query(qs, 10, n_probes=2, mode="bucket",
+                       with_stats=True)
     assert sb["dropped_probe_pairs"] == sa["dropped_probe_pairs"] == 0
     assert sb["queries_per_cluster_cap_round0"] > 32
     for key in ("queries_per_cluster_cap", "queries_per_cluster_cap_round0",
@@ -81,14 +82,14 @@ def test_pinned_capacity_reports_drops(tmp_path):
     jax_ivf, port, _ = _pair(tmp_path, "euclidean", 1, "int8", 800, 16, 8)
     port.queries_per_cluster = 8
     qs = np.repeat(np.asarray(jax_ivf.data)[:1], 20, axis=0)
-    _, stats = port.query(qs, 5, n_probes=1, with_stats=True)
+    _, stats = port.query(qs, 5, n_probes=1, mode="bucket", with_stats=True)
     assert stats["dropped_probe_pairs"] == 12
 
 
 def test_single_query(tmp_path):
     jax_ivf, port, qs = _pair(tmp_path, "angular", 2, "int8", 800, 16, 8)
     a = np.asarray(jax_ivf.query(qs[3], k=5, n_probes=2, mode="bucket"))
-    b = port.query(qs[3], k=5, n_probes=2)
+    b = port.query(qs[3], k=5, n_probes=2, mode="bucket")
     assert tuple(b.shape) == (5,)
     _assert_same_distances(jax_ivf, a, b.numpy(), qs[3])
 
@@ -104,7 +105,7 @@ def test_labels_and_state_dict(tmp_path):
     with np.load(path) as z:
         state = {k: z[k] for k in z.files}
     port = ivf_from_state(state, "cpu")
-    got = port.query(qs, k=5)
+    got = port.query(qs, k=5, mode="bucket")
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(jax_ivf.query(qs, k=5,
@@ -120,19 +121,38 @@ def test_labels_and_state_dict(tmp_path):
     (dict(rescore_rows=True), None),
     ({}, "gather")])
 def test_unported_options_raise(kw, call):
-    if call is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            IVF("euclidean", 4, **kw)
-        return
+    """The options ROADMAP queue 1 listed as unported run and answer
+    like the default index built from the same seed: 'xla' with the
+    same sorted exact distances (rtol 1e-5), 'approx' selection and
+    rescore_rows with the same ids, and gather mode never worse than
+    bucket mode (its pool is a superset of bucket's pass-1 cut)."""
     X, qs = make_clustered(300, 16, 4, seed=1)
-    ivf = IVF("euclidean", 4, FastPQ(2)).fit(X).build(X, n_probes=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ivf.query(qs, 5, mode=call)
+    base = IVF("euclidean", 4, FastPQ(2)).fit(X).build(X, n_probes=2)
+    ivf = IVF("euclidean", 4, FastPQ(2), **kw).fit(X).build(X, n_probes=2)
+    want = base.query(qs, 5, n_probes=2, mode="bucket").numpy()
+    got, stats = ivf.query(qs, 5, n_probes=2, mode=call or "bucket",
+                           with_stats=True)
+    got = got.numpy()
+    d_want = np.sort(((X[want] - qs[:, None]) ** 2).sum(-1), axis=1)
+    d_got = np.sort(((X[got] - qs[:, None]) ** 2).sum(-1), axis=1)
+    if call == "gather":
+        assert stats["mode"] == "gather" and stats["dropped_probe_pairs"] == 0
+        assert (d_got[:, -1] <= d_want[:, -1] + 1e-4).all()
+    elif "scan_impl" in kw:
+        np.testing.assert_allclose(d_got, d_want, rtol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 def test_list_too_long_raises():
+    """A list too long for the int32 fold encoding: 'auto' routes the
+    bucket scan to 'xla'; an explicit 'fused' raises the encoding's
+    ValueError (no scan runs at this faked length)."""
     X, qs = make_clustered(300, 16, 4, seed=1)
     ivf = IVF("euclidean", 4, FastPQ(2)).fit(X).build(X, n_probes=1)
+    assert ivf._scan_engine() == "fused"
     ivf.max_tiles = 1 << 14       # as if one list held 2,097,152 points
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ivf.query(qs, 5)
+    assert ivf._scan_engine() == "xla"
+    ivf.set_scan_impl("fused")
+    with pytest.raises(ValueError, match="int32 encoding"):
+        ivf.query(qs, 5, mode="bucket")

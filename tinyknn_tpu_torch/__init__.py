@@ -8,19 +8,41 @@ object keeps its state on the device it is given; CPU tensors run the
 kernels' plain torch versions. Importing the package touches no GPU and
 compiles nothing: a kernel is built with nvcc on its first launch.
 
-Ported so far: FastPQ fit/transform/tables/full-scan search and the IVF
-fit, build and bucket-mode query with the PQ and exact engines (see
-ROADMAP.md for what remains).
+Ported so far: FastPQ (fit, transform, tables, full-scan search), the
+single-device IVF (fit, build, ``query`` in bucket and gather modes on
+the 'fused', 'xla' and exact engines, ``rescore_rows``,
+``query_stream``, ``tune_n_probes``), ``Flat``, and reading and writing
+the npz archives. The sharded indexes are not ported yet (see
+ROADMAP.md).
 """
 
-from .io import ivf_from_state, load_ivf, load_pq, pq_from_state
-from .models import IVF, FastPQ, TransformedData
-from .utils import knn_brute, make_clustered, truth_cache_path
+from .io import (
+    ivf_from_state,
+    load_ivf,
+    load_pq,
+    pq_from_state,
+    save_ivf,
+    save_pq,
+)
+from .models import IVF, FastPQ, Flat, TransformedData
+from .utils import (
+    bottom_k,
+    bottom_k_2d,
+    cdist,
+    group_data_by_indices,
+    knn_brute,
+    knn_brute1,
+    make_clustered,
+    pad1,
+    pad2,
+    truth_cache_path,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "IVF", "FastPQ", "TransformedData", "ivf_from_state", "knn_brute",
-    "load_ivf", "load_pq", "make_clustered", "pq_from_state",
-    "truth_cache_path",
+    "IVF", "FastPQ", "Flat", "TransformedData", "bottom_k", "bottom_k_2d",
+    "cdist", "group_data_by_indices", "ivf_from_state", "knn_brute",
+    "knn_brute1", "load_ivf", "load_pq", "make_clustered", "pad1", "pad2",
+    "pq_from_state", "save_ivf", "save_pq", "truth_cache_path",
 ]

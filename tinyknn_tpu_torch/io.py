@@ -1,13 +1,14 @@
-"""Load IVF and FastPQ archives (counterpart of tinyknn_tpu/io.py, read
-side).
+"""Save and load IVF and FastPQ archives (counterpart of tinyknn_tpu/io.py).
 
-``tinyknn_tpu.io.save_ivf`` writes a built index as a v3 npz archive:
-CSR-tiled lists plus the PQ codebooks and metadata;
-``tinyknn_tpu.io.save_pq`` writes a fitted FastPQ (kind ``fastpq``).
-The port reads the same archives, so an index or a quantizer fitted by
-the JAX package serves from the port unchanged. Only v3 is read; saving
-from the port and the sharded loader are not ported yet (ROADMAP
-queue 1, item 4).
+An archive is one npz file: the CSR-tiled lists plus the PQ codebooks
+and two JSON metadata records (``ivf_meta``, ``pq_meta``). The port
+writes the same keys and the same metadata fields as
+``tinyknn_tpu.io.save_ivf``/``save_pq`` (format v3), so an index built
+by either package serves from the other. It reads v3 and the older
+dense-grid v1/v2 archives, which are converted to the CSR layout on
+load, and it reads metadata with the JAX loader's defaults for every
+field an older writer may have left out. The sharded writer and loader
+are not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -19,18 +20,35 @@ import torch
 
 from .models.fast_pq import FastPQ
 from .models.ivf import IVF
+from .ops.kernels import LANE_TILE
+from .utils.padding import round_up
 
 FORMAT_VERSION = 3
-_REQUIRED = frozenset({
-    "format", "kind", "ivf_meta", "all_centers", "active_centers",
-    "csr_codes", "csr_ids", "tile_offsets", "list_counts", "data",
-    "pq_center_blocks", "pq_meta"})
-_OPTIONAL = frozenset({"labels", "pq_R"})
+_COMMON = frozenset({"format", "kind", "ivf_meta", "all_centers",
+                     "active_centers", "data", "pq_center_blocks",
+                     "pq_meta"})
+_REQUIRED = {  # by format: v3 CSR tiles, v1/v2 dense (C, cap) grids
+    3: _COMMON | {"csr_codes", "csr_ids", "tile_offsets", "list_counts"},
+    2: _COMMON | {"list_codes", "list_ids"},
+    1: _COMMON | {"list_codes", "list_ids"},
+}
+_OPTIONAL = {3: frozenset({"labels", "pq_R"}),
+             2: frozenset({"labels", "pq_R", "list_counts"}),
+             1: frozenset({"labels", "pq_R", "list_counts"})}
 _PQ_REQUIRED = frozenset({"format", "kind", "pq_center_blocks", "pq_meta"})
+# metadata an older writer may lack, with the JAX loader's defaults
+_IVF_DEFAULTS = dict(kmeans_iters=30, queries_per_cluster=None,
+                     pass1_method="auto", scan_impl="auto", fold_mult=8,
+                     rescore_rows=False, scan_budget_bytes=2 << 30)
+_PQ_DEFAULTS = dict(kmeans_iters=25, kmeans_n_init=2, table_dtype="int8")
 
 
 def _meta(state, key) -> dict:
     return json.loads(bytes(np.asarray(state[key])).decode())
+
+
+def _json_bytes(meta: dict) -> np.ndarray:
+    return np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
 
 
 def _check_keys(state, required, optional, kind: bytes):
@@ -40,16 +58,101 @@ def _check_keys(state, required, optional, kind: bytes):
             f"not a {kind.decode()} archive: missing "
             f"{sorted(required - keys)}, unknown "
             f"{sorted(keys - required - optional)}")
-    if int(state["format"]) != FORMAT_VERSION:
-        raise ValueError(f"only format v{FORMAT_VERSION} archives are read, "
-                         f"not v{int(state['format'])}")
     if bytes(np.asarray(state["kind"])) != kind:
         raise ValueError(f"not a {kind.decode()} archive")
 
 
+def _format(state, versions) -> int:
+    if "format" not in state:
+        raise ValueError("not an archive: no format key")
+    version = int(state["format"])
+    if version not in versions:
+        raise ValueError(f"archive format v{version} is not one of "
+                         f"{sorted(versions)}")
+    return version
+
+
+# ------------------------------------------------------------------ write
+
+
+def _pq_state(pq: FastPQ) -> dict:
+    """The ``pq_*`` arrays of a fitted FastPQ, as the JAX package writes
+    them."""
+    state = {
+        "pq_center_blocks": pq.center_blocks.cpu().numpy(),
+        "pq_meta": _json_bytes({
+            "dims_per_block": pq.dims_per_block,
+            "use_kmeans": pq.use_kmeans,
+            "rotate_dim": pq.rotate_dim,
+            "seed": pq.seed,
+            "backend": pq.backend,
+            "kmeans_iters": pq.kmeans_iters,
+            "kmeans_n_init": pq.kmeans_n_init,
+            "table_dtype": pq.table_dtype,
+        }),
+    }
+    if pq.R is not None:
+        state["pq_R"] = pq.R.cpu().numpy()
+    return state
+
+
+def save_pq(path, pq: FastPQ, compress: bool = False):
+    """Write a fitted FastPQ as a v3 ``kind=fastpq`` archive."""
+    if pq.centers is None:
+        raise RuntimeError("save_pq: PQ not fitted")
+    saver = np.savez_compressed if compress else np.savez
+    saver(path, format=np.int32(FORMAT_VERSION),
+          kind=np.frombuffer(b"fastpq", np.uint8), **_pq_state(pq))
+
+
+def save_ivf(path, ivf: IVF, compress: bool = False):
+    """Write a built IVF as a v3 archive: the keys and metadata fields
+    of ``tinyknn_tpu.io.save_ivf``, so ``tinyknn_tpu.io.load_ivf`` reads
+    it. Derived state (the exact engine's tiles, the rescore_rows copy)
+    is not stored: loaders rebuild it from (data, csr_ids).
+
+    ``compress`` is off by default: codes and float vectors barely
+    compress, and deflate is slow at a million points."""
+    if ivf.csr_codes is None:
+        raise RuntimeError("save_ivf: index not built")
+
+    def host(t):
+        return t.cpu().numpy()
+
+    saver = np.savez_compressed if compress else np.savez
+    saver(
+        path, format=np.int32(FORMAT_VERSION),
+        kind=np.frombuffer(b"ivf", np.uint8),
+        ivf_meta=_json_bytes({
+            "metric": ivf.metric,
+            "n_clusters": ivf.n_clusters,
+            "seed": ivf.seed,
+            "kmeans_iters": ivf.kmeans_iters,
+            "queries_per_cluster": ivf.queries_per_cluster,
+            "pass1_method": ivf.pass1_method,
+            "scan_impl": ivf.scan_impl,
+            "build_probes": int(ivf.build_probes),
+            "fold_mult": ivf.fold_mult,
+            "rescore_rows": bool(ivf.rescore_rows),
+            "scan_budget_bytes": int(ivf.scan_budget_bytes),
+        }),
+        all_centers=host(ivf.all_centers),
+        active_centers=host(ivf.active_centers),
+        csr_codes=host(ivf.csr_codes),
+        csr_ids=host(ivf.csr_ids),
+        tile_offsets=host(ivf.tile_offsets),
+        list_counts=host(ivf.list_counts),
+        data=host(ivf.data),
+        **({"labels": host(ivf.labels)} if ivf.labels is not None else {}),
+        **_pq_state(ivf.pq))
+
+
+# ------------------------------------------------------------------- read
+
+
 def _pq_restore(state, device: torch.device) -> FastPQ:
     """A fitted port FastPQ on ``device`` from the ``pq_*`` arrays."""
-    meta = _meta(state, "pq_meta")
+    meta = {**_PQ_DEFAULTS, **_meta(state, "pq_meta")}
     pq = FastPQ(dims_per_block=meta["dims_per_block"],
                 use_kmeans=meta["use_kmeans"],
                 rotate_dim=meta["rotate_dim"], seed=meta["seed"],
@@ -69,10 +172,10 @@ def _pq_restore(state, device: torch.device) -> FastPQ:
 
 def pq_from_state(state: dict[str, np.ndarray], device) -> FastPQ:
     """A fitted port ``FastPQ`` on ``device`` from the arrays of a v3
-    ``kind=fastpq`` archive (the keys ``tinyknn_tpu.io.save_pq`` writes,
-    optional ``pq_R`` included). Its ``backend`` is kept and routes
-    nothing."""
+    ``kind=fastpq`` archive (the keys ``save_pq`` writes, optional
+    ``pq_R`` included). Its ``backend`` is kept and routes nothing."""
     _check_keys(state, _PQ_REQUIRED, frozenset({"pq_R"}), b"fastpq")
+    _format(state, (FORMAT_VERSION,))
     return _pq_restore(state, torch.device(device))
 
 
@@ -82,21 +185,63 @@ def load_pq(path, device) -> FastPQ:
         return pq_from_state({key: z[key] for key in z.files}, device)
 
 
+def _dense_grid_to_csr(list_codes, list_ids, counts):
+    """A v1/v2 dense (C, cap, Bs) list grid -> the CSR tile layout:
+    (csr_codes uint8[T, Bs_pad, 128], csr_ids int32[T * 128],
+    tile_offsets int32[C], counts int32[C]), one guard tile appended,
+    as ``tinyknn_tpu.io._dense_grid_to_csr`` builds it."""
+    C, _, Bs = list_codes.shape
+    counts = np.asarray(counts).astype(np.int64)
+    ntiles = -(-counts // LANE_TILE)
+    toff = np.zeros(C, np.int64)
+    np.cumsum(ntiles[:-1], out=toff[1:])
+    total = int(ntiles.sum()) + 1
+    flat_ids = np.full(total * LANE_TILE, -1, np.int32)
+    flat_codes = np.zeros((total * LANE_TILE, Bs), np.uint8)
+    for c in range(C):
+        L, s = int(counts[c]), int(toff[c]) * LANE_TILE
+        flat_ids[s:s + L] = list_ids[c, :L]
+        flat_codes[s:s + L] = list_codes[c, :L]
+    rows = np.pad(flat_codes, ((0, 0), (0, round_up(Bs, 8) - Bs)))
+    csr_codes = rows.reshape(total, LANE_TILE, -1).transpose(0, 2, 1)
+    return (np.ascontiguousarray(csr_codes), flat_ids,
+            toff.astype(np.int32), counts.astype(np.int32))
+
+
+def _csr_lists(state, version: int):
+    """(csr_codes, csr_ids, tile_offsets, list_counts) host arrays of an
+    archive of any format."""
+    if version >= 3:
+        return tuple(np.asarray(state[key]) for key in (
+            "csr_codes", "csr_ids", "tile_offsets", "list_counts"))
+    codes = np.asarray(state["list_codes"])
+    if version < 2:  # v1: one code per byte
+        codes = codes[..., 0::2] | (codes[..., 1::2] << 4)
+    list_ids = np.asarray(state["list_ids"])
+    counts = (np.asarray(state["list_counts"]) if "list_counts" in state
+              else np.sum(list_ids >= 0, axis=1))
+    return _dense_grid_to_csr(codes, list_ids, counts)
+
+
 def ivf_from_state(state: dict[str, np.ndarray], device) -> IVF:
-    """A port ``IVF`` on ``device`` from the arrays of a v3 archive
-    (the keys ``tinyknn_tpu.io.save_ivf`` writes, optional ``labels``
-    and ``pq_R`` included). It computes what the JAX index computes; an
-    exact-engine index rebuilds its vector tiles from (data, csr_ids),
-    as the JAX loader does."""
-    _check_keys(state, _REQUIRED, _OPTIONAL, b"ivf")
-    meta = _meta(state, "ivf_meta")
+    """A port ``IVF`` on ``device`` from the arrays of an archive (v3, or
+    a v1/v2 dense grid; optional ``labels`` and ``pq_R`` included). It
+    computes what the JAX index computes. Metadata fields missing from
+    the archive take the JAX loader's defaults; a missing
+    ``build_probes`` is the lists' mean multiplicity, sum(list_counts)
+    / n_rows, as build() places every point in exactly build_probes
+    lists. Derived state (the exact engine's vector tiles, the
+    rescore_rows copy) is rebuilt from (data, csr_ids), as the JAX
+    loader does."""
+    version = _format(state, _REQUIRED)
+    _check_keys(state, _REQUIRED[version], _OPTIONAL[version], b"ivf")
+    meta = {**_IVF_DEFAULTS, **_meta(state, "ivf_meta")}
     device = torch.device(device)
 
-    def tensor(key, dtype=None):
+    def tensor(key, dtype):
         return torch.as_tensor(np.asarray(state[key]), dtype=dtype,
                                device=device)
 
-    pq = _pq_restore(state, device)
     ivf = IVF(meta["metric"], meta["n_clusters"], seed=meta["seed"],
               kmeans_iters=meta["kmeans_iters"],
               queries_per_cluster=meta["queries_per_cluster"],
@@ -104,21 +249,26 @@ def ivf_from_state(state: dict[str, np.ndarray], device) -> IVF:
               scan_impl=meta["scan_impl"], fold_mult=meta["fold_mult"],
               rescore_rows=meta["rescore_rows"],
               scan_budget_bytes=meta["scan_budget_bytes"], device=device)
-    ivf.pq = pq
-    ivf.build_probes = int(meta["build_probes"])
+    ivf.pq = _pq_restore(state, device)
     ivf.all_centers = tensor("all_centers", torch.float32)
     ivf.active_centers = tensor("active_centers", torch.float32)
     ivf.data = tensor("data", torch.float32)
     if "labels" in state:
         ivf.labels = tensor("labels", torch.int64)
-    ivf._set_lists(tensor("csr_codes", torch.uint8),
-                   tensor("csr_ids", torch.int32),
-                   np.asarray(state["tile_offsets"]),
-                   np.asarray(state["list_counts"]))
-    return ivf.set_scan_impl(ivf.scan_impl)
+    csr_codes, csr_ids, tile_offsets, list_counts = _csr_lists(state, version)
+    ivf._set_lists(torch.as_tensor(csr_codes, dtype=torch.uint8),
+                   torch.as_tensor(csr_ids, dtype=torch.int32),
+                   tile_offsets, list_counts)
+    ivf.build_probes = meta.get("build_probes")
+    if ivf.build_probes is None:
+        total = int(np.asarray(list_counts, np.int64).sum())
+        ivf.build_probes = max(1, round(total / max(1, ivf.data.shape[0])))
+    ivf.build_probes = int(ivf.build_probes)
+    return ivf.set_scan_impl(ivf.scan_impl).set_rescore_rows(
+        ivf.rescore_rows)
 
 
 def load_ivf(path, device) -> IVF:
-    """``np.load`` of a v3 archive + ``ivf_from_state``."""
+    """``np.load`` of an IVF archive + ``ivf_from_state``."""
     with np.load(path) as z:
         return ivf_from_state({key: z[key] for key in z.files}, device)

@@ -1,4 +1,6 @@
 from .fast_pq import FastPQ, TransformedData
-from .ivf import IVF
+from .flat import Flat
+from .ivf import IVF, TuneResult, tune_n_probes
 
-__all__ = ["FastPQ", "TransformedData", "IVF"]
+__all__ = ["FastPQ", "TransformedData", "Flat", "IVF", "TuneResult",
+           "tune_n_probes"]

@@ -90,13 +90,11 @@ class FastPQ:
         Pads rows and columns, applies a random orthogonal rotation or
         projection to ``rotate_dim`` dims unless the raw dimensionality
         is exactly 100 (the GloVe case, where no rotation is applied),
-        then fits 16 centers per block, all blocks at once.
+        then fits 16 centers per block, all blocks at once, by k-means
+        (``use_kmeans``) or as the fixed ring code matched to each
+        block's mean and covariance (dims_per_block=2 only).
         """
         del verbose
-        if not self.use_kmeans:
-            raise NotImplementedError(
-                "use_kmeans=False (the fixed Gaussian code) is not ported "
-                "yet: ROADMAP queue 1, item 10")
         fp32_matmuls()
         data = as_f32(data, self.device)
         if data.numel() == 0:
@@ -117,10 +115,15 @@ class FastPQ:
             data = data @ self.R.T
         B = d // dpb
         cols = data.reshape(n, B, dpb).transpose(0, 1).contiguous()
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.center_blocks = blockwise_kmeans(
-            cols, generator=gen, k=16, iters=self.kmeans_iters,
-            n_init=self.kmeans_n_init)                      # (B, 16, dpb)
+        if self.use_kmeans:
+            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+            self.center_blocks = blockwise_kmeans(
+                cols, generator=gen, k=16, iters=self.kmeans_iters,
+                n_init=self.kmeans_n_init)                  # (B, 16, dpb)
+        else:
+            self.center_blocks = torch.as_tensor(
+                _fixed_gaussian_code(cols.cpu().numpy(), dpb),
+                device=self.device)
         self.centers = self.center_blocks.transpose(0, 1).reshape(16, d)
         self.sqrt_n_blocks = float(np.sqrt(B))
         return self
@@ -189,6 +192,29 @@ class FastPQ:
                             self.dims_per_block, signed, true_n, k, rescore,
                             _resolve_method(method), self.table_dtype)
         return idx[0] if single else idx
+
+
+def _fixed_gaussian_code(cols, dpb: int):
+    """Data-independent ring code for dims_per_block=2 (NumPy, as in the
+    JAX package): a fixed 16-point code (center + rings of 6 and 9)
+    affinely matched to each block's mean and covariance through a
+    Cholesky factor. cols: (B, n, 2) -> f32 (B, 16, 2)."""
+    if dpb != 2:
+        raise ValueError("the fixed code is only defined for "
+                         "dims_per_block=2")
+    base = np.array(
+        [(0.0, 0.0)]
+        + [(r * np.cos(th), r * np.sin(th))
+           for r, num in zip([1, 2], [6, 9])
+           for th in np.linspace(0, 2 * np.pi, num, endpoint=False)],
+        dtype=np.float64)
+    out = []
+    for col in cols:  # (n, 2)
+        mu = np.mean(col, axis=0)
+        S = np.cov(col.T, bias=True)
+        S = np.atleast_2d(S) + 1e-9 * np.eye(2)
+        out.append(base @ np.linalg.cholesky(S).T + mu)
+    return np.stack(out).astype(np.float32)  # (B, 16, 2)
 
 
 def _encode(data, center_blocks, R, dpb: int):

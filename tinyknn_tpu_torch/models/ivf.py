@@ -1,6 +1,5 @@
 """IVF: inverted-file index over FastPQ codes (counterpart of
-tinyknn_tpu/models/ivf.py: fit, build, the bucket-mode query and the
-exact engine).
+tinyknn_tpu/models/ivf.py).
 
 Coarse k-means clustering; each point is placed in its ``n_probes``
 nearest lists at build; a query scans its ``n_probes`` nearest lists
@@ -13,25 +12,36 @@ Layout and query pipeline are the JAX package's:
     last axis) where list i owns ``ceil(len_i / 128)`` consecutive
     tiles starting at ``tile_offsets[i]``, with flat ids
     ``csr_ids[T * 128]`` (-1 = padding);
-  * a batch's (query, probe) pairs are bucketed by list, so each list
-    is scanned once per batch for every query that probes it
-    (``_bucket_scan_round``) by the ``scan_fold_csr`` kernel, which
-    emits an encoded min-fold per (list, query slot);
-  * selection runs on the int32 encodings, and only the survivors are
-    decoded, rescored, deduplicated (build_probes > 1) and cut to k.
+  * bucket mode (the throughput path): a batch's (query, probe) pairs
+    are bucketed by list, so each list is scanned once per batch for
+    every query that probes it (``_bucket_scan_round``), by the
+    ``scan_fold_csr`` kernel, which emits an encoded min-fold per
+    (list, query slot); selection runs on the int32 encodings, and only
+    the survivors are decoded, rescored, deduplicated (build_probes > 1)
+    and cut to k. ``scan_impl='xla'`` scans the same buckets in plain
+    torch instead (dense one-hot products and a top-r per pair), for
+    lists too long for the fold encoding;
+  * gather mode (the latency path for small batches): each query
+    gathers its probed lists and sums its own tables over them
+    (``_ivf_query_gather``), with no bucketing and no kernel;
+  * ``query_stream`` runs many batches per call at capacities measured
+    once per shape from the stream's own per-list load.
 
 The exact engine (``scan_impl='exact'``) keeps the same lists but also
 a bf16 copy of every listed vector, augmented so that one dot product
 with an augmented query is the true squared distance
 (``csr_vecs[T, d_aug, 128]``); the ``scan_exact_csr`` kernel scans it
 in place of the codes, and the same selection and rescore follow.
+``rescore_rows`` keeps a CSR-ordered fp32 copy of the vectors so the
+rescore reads by flat row and decodes ids for the winners only.
 
-All state lives on the device given at construction. Not ported yet
-(ROADMAP queue 1): gather mode, the 'xla' scan engine,
-``rescore_rows``, ``query_stream`` and ``tune_n_probes``.
+All state lives on the device given at construction. The sharded
+index is not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,19 +57,20 @@ from ..ops.kernels import (
     scan_fold_csr,
 )
 from ..ops.kmeans import kmeans_fit
+from ..ops.packing import unpack_codes
 from ..ops.topk import dedup_candidates, smallest_k
 from ..utils.bruteforce import fp32_matmuls, knn_brute
 from ..utils.grouping import invert_assignments_csr_tiled
 from ..utils.padding import round_up
-from .fast_pq import FastPQ, _build_tables, as_f32
+from .fast_pq import FastPQ, _build_tables, _resolve_method, as_f32
 
 FOLD_MULT = 8       # fold-width headroom over r (see _fold_tiles)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to tinyknn_tpu_torch yet: ROADMAP queue 1, "
-        f"{item}")
+GATHER_MAX_PAIRS = 64  # mode='auto' gathers when Q * n_probes is at most this
+# one-hot bytes per step of the 'xla' scan: the JAX package steps over
+# CLUSTER_CHUNK = 8 lists; a byte budget bounds the step whatever the
+# list length
+XLA_CHUNK_BYTES = 256 << 20
+SCAN_IMPLS = ("auto", "fused", "xla", "exact")
 
 
 class IVF:
@@ -70,27 +81,32 @@ class IVF:
                  pass1_method="auto", scan_impl="auto",
                  fold_mult=FOLD_MULT, rescore_rows=False,
                  scan_budget_bytes=2 << 30, device="cpu"):
-        """``scan_impl``: 'auto' and 'fused' both scan the PQ codes with
-        the scan_fold_csr kernel; 'exact' scans bf16 vectors with
+        """``scan_impl``: 'fused' scans the PQ codes with the
+        scan_fold_csr kernel; 'xla' scans them in plain torch (the JAX
+        package's XLA engine: dense one-hot products, a top-r per pair);
+        'auto' is 'fused' when the fold encoding holds the longest list
+        and 'xla' otherwise; 'exact' scans bf16 vectors with
         scan_exact_csr (4x the memory of the codes at dims_per_block=2;
-        lists of at most 65,536 points). ``pass1_method``: 'auto' and
-        'exact' both select exactly (the card has no approx_max_k).
-        ``device``: where
-        the index and every query's work live; nothing picks it for you.
+        lists of at most 65,536 points). ``pass1_method``: 'auto',
+        'exact' and 'approx' all select exactly: the card has no
+        approx_max_k, and the JAX package selects exactly off the TPU
+        too. ``device``: where the index and every query's work live;
+        nothing picks it for you.
+
+        ``rescore_rows``: keep a CSR-ordered fp32 copy of the vectors
+        (T * 128 x d, one more copy of the data) so that the rescore
+        reads by flat row and ids decode for the final winners only.
+        The answers are the same with and without it.
 
         ``scan_budget_bytes`` bounds the (C, qc, S) scan grids that the
-        drop-retry escalation may grow into (see ``_qc_caps``).
+        drop-retry escalation and the stream's measured capacities may
+        grow into (see ``_qc_caps``).
         """
         if metric not in ("euclidean", "angular"):
             raise ValueError(f"metric must be euclidean or angular, not "
                              f"{metric!r}")
         _check_scan_impl(scan_impl)
-        if pass1_method == "approx":
-            raise _not_ported("pass1_method='approx'", "item 5")
-        if pass1_method not in ("auto", "exact"):
-            raise ValueError(f"unknown pass1_method {pass1_method!r}")
-        if rescore_rows:
-            raise _not_ported("rescore_rows=True", "item 5")
+        _resolve_method(pass1_method)
         self.device = torch.device(device)
         self.metric = metric
         self.pq = (FastPQ(dims_per_block=2, device=self.device)
@@ -116,6 +132,7 @@ class IVF:
         self.csr_codes = None     # (T, B_pad/2, 128) uint8 code tiles
         self.csr_ids = None       # (T * 128,) int32, -1 padding
         self.csr_vecs = None      # (T, d_aug, 128) bf16 (exact engine)
+        self.csr_raw = None       # (T * 128, d) f32 (rescore_rows)
         self.tile_offsets = None  # (C,) int32, list i starts at tile [i]
         self.max_tiles = None     # host int: longest list in tiles
         self.data = None          # (n, d) f32 (normalized when angular)
@@ -183,8 +200,9 @@ class IVF:
         csr_ids = torch.as_tensor(flat_ids, device=self.device)
         self._set_lists(pack_codes_tiled(codes, csr_ids), csr_ids, toff,
                         counts)
-        self.csr_vecs = None
-        return self.set_scan_impl(self.scan_impl)
+        self.csr_vecs = self.csr_raw = None
+        return self.set_scan_impl(self.scan_impl).set_rescore_rows(
+            self.rescore_rows)
 
     def set_scan_impl(self, scan_impl):
         """Switch the list-scan engine of a built index. The exact
@@ -203,6 +221,17 @@ class IVF:
         elif scan_impl != "exact":
             self.csr_vecs = None
         self.scan_impl = scan_impl
+        return self
+
+    def set_rescore_rows(self, enabled=True):
+        """Switch the CSR-ordered raw-row copy of a built index on or
+        off (see the constructor's ``rescore_rows``); it is derived from
+        (data, csr_ids) like the exact engine's tiles."""
+        self.rescore_rows = bool(enabled)
+        if enabled and self.csr_raw is None and self.csr_ids is not None:
+            self.csr_raw = _csr_raw_rows(self.data, self.csr_ids)
+        if not enabled:
+            self.csr_raw = None
         return self
 
     def _set_lists(self, csr_codes, csr_ids, tile_offsets, counts):
@@ -226,69 +255,66 @@ class IVF:
 
         Returns an int32 tensor on the index's device, (k,) or (Q, k)
         (int64 when the index has labels); slots that found no valid
-        candidate hold -1. ``mode``: 'bucket' or 'auto' (which is
-        bucket here). ``with_stats=True`` also returns a diagnostics
-        dict (probe pairs dropped by the bucket capacity, the
-        capacities used).
+        candidate hold -1. ``mode``: 'bucket' (the list-bucketed scan,
+        the throughput path), 'gather' (each query gathers its probed
+        lists: lower latency for small batches) or 'auto', which
+        gathers when Q * n_probes <= 64. ``with_stats=True`` also
+        returns a diagnostics dict (the mode run, probe pairs dropped by
+        the bucket capacity, the capacities used).
 
         A skewed batch (many queries near one list) can overflow the
         per-list bucket capacity; the query then retries at 4x the
         capacity and last at the can't-drop caps, as the JAX package
         does. ``queries_per_cluster`` pins the capacity and turns the
         retries off.
+
+        On the exact engine the default rescore sliver ``pass_1`` is
+        4 * k * n_probes, linear in n_probes; pass an explicit
+        ``pass_1`` (floored at k) to pin it.
         """
-        if self.csr_codes is None:
-            raise RuntimeError(
-                "IVF index is empty: call fit(X) and build(X) before query")
-        if mode == "gather":
-            raise _not_ported("mode='gather'", "item 11")
-        if mode not in ("auto", "bucket"):
+        self._check_built()
+        if mode not in ("auto", "bucket", "gather"):
             raise ValueError(f"unknown mode {mode!r}")
         fp32_matmuls()
         q = as_f32(q, self.device)
         single = q.ndim == 1
         if single:
             q = q[None]
-        k, n_probes, pass_1, r, r_tail, qc, qc0 = _query_params(
-            self, q.shape[0], k, n_probes, pass_1)
-        exact = self.scan_impl == "exact"
-        if not exact:
-            B_pad = 2 * round_up(self.pq.center_blocks.shape[0] // 2, 8)
-            table_dtype = (torch.int8 if self.pq.table_dtype == "int8"
-                           else torch.bfloat16)
-            try:
-                fold_encoding(table_dtype, B_pad, self.max_tiles)
-            except ValueError as e:
-                raise _not_ported(
-                    f"{e}: the JAX package scans such lists with "
-                    f"scan_impl='xla', which", "item 5") from e
-        attempts = 1 if self.queries_per_cluster else 3
-        qc_full, qc0_full = _qc_caps(self, q.shape[0], n_probes, r, r_tail,
-                                     qc, qc0)
-        for attempt in range(attempts):
-            out, dropped = _ivf_query(
+        params = _query_params(self, q.shape[0], k, n_probes, pass_1)
+        k, n_probes, pass_1, r, r_tail, qc, qc0 = params
+        if mode == "auto":
+            mode = ("gather" if q.shape[0] * n_probes <= GATHER_MAX_PAIRS
+                    else "bucket")
+        if mode == "gather":
+            exact = self.scan_impl == "exact"
+            self._check_exact()
+            out = _ivf_query_gather(
                 q, self.pq, self.active_centers,
-                self.csr_vecs if exact else self.csr_codes,
-                self.csr_ids, self.tile_offsets, self.list_counts,
-                self.data, metric=self.metric, k=k, n_probes=n_probes,
-                pass_1=pass_1, r=r, r_tail=r_tail, qc=qc, qc0=qc0,
-                max_tiles=self.max_tiles, build_probes=self.build_probes,
-                fold_mult=self.fold_mult, exact=exact)
-            dropped = int(dropped)
-            if attempt + 1 == attempts or dropped == 0:
-                break
-            if attempt + 2 == attempts:  # last try: can't-drop caps
-                qc, qc0 = qc_full, qc0_full
-            else:
-                qc = min(round_up(4 * qc, 8), qc_full)
-                qc0 = min(round_up(4 * qc0, 8), qc0_full)
-        out = out[0] if single else out
-        if self.labels is not None:
-            out = torch.where(out >= 0, self.labels[out.clamp(min=0).long()],
-                              -1)
+                self.csr_vecs if exact else self.csr_codes, self.csr_ids,
+                self.tile_offsets, self.list_counts, self.data,
+                metric=self.metric, k=k, n_probes=n_probes, pass_1=pass_1,
+                max_tiles=self.max_tiles, exact=exact)
+            dropped = 0
+        else:
+            scan_impl = self._scan_engine()
+            attempts = 1 if self.queries_per_cluster else 3
+            qc_full, qc0_full = _qc_caps(self, q.shape[0], n_probes, r,
+                                         r_tail, qc, qc0)
+            for attempt in range(attempts):
+                out, dropped = self._bucket_query(
+                    q, (k, n_probes, pass_1, r, r_tail, qc, qc0), scan_impl)
+                dropped = int(dropped)
+                if attempt + 1 == attempts or dropped == 0:
+                    break
+                if attempt + 2 == attempts:  # last try: can't-drop caps
+                    qc, qc0 = qc_full, qc0_full
+                else:
+                    qc = min(round_up(4 * qc, 8), qc_full)
+                    qc0 = min(round_up(4 * qc0, 8), qc0_full)
+        out = self._map_labels(out[0] if single else out)
         if with_stats:
             return out, {
-                "mode": "bucket",
+                "mode": mode,
                 "dropped_probe_pairs": dropped,
                 "total_probe_pairs": int(q.shape[0]) * n_probes,
                 "queries_per_cluster_cap": qc,
@@ -298,12 +324,159 @@ class IVF:
             }
         return out
 
+    def query_stream(self, batches, k, n_probes=1, pass_1=None,
+                     with_stats=False, adaptive_qc=True, device_out=False):
+        """Top-k ids for a (R, Q, d) stream of query batches: (R, Q, k)
+        int32 (int64 with labels), in bucket mode.
+
+        The R batches run one after another on the device's stream and
+        the host waits once, at the end, for the ids and the summed
+        count of dropped pairs. ``device_out=True`` waits for nothing:
+        it returns ``(ids, dropped)`` as tensors on the index's device,
+        positional int32 ids with no label mapping, for a caller whose
+        next stage runs on the device; it cannot build the stats dict.
+
+        There is no drop retry (it would rerun the whole stream).
+        Instead, with ``adaptive_qc=True`` the first call at a
+        (Q, n_probes) shape measures the stream's peak per-list load
+        (the same probe selection, then a count per list) and raises
+        the bucket capacities to cover it, clamped by
+        ``scan_budget_bytes``; later calls reuse the floors. If a
+        host-path call still drops pairs, the floors are measured again
+        on that stream for the next call. ``queries_per_cluster`` pins
+        the capacities and turns all of this off.
+
+        ``with_stats=True`` also returns a dict: pairs dropped across
+        the stream, the capacities and the floors applied.
+        """
+        self._check_built()
+        if device_out and with_stats:
+            raise ValueError(
+                "device_out=True returns device tensors and cannot build "
+                "the host-side stats dict; audit drops on a host-path call "
+                "(with_stats=True, device_out=False)")
+        fp32_matmuls()
+        batches = as_f32(batches, self.device)
+        if batches.ndim != 3:
+            raise ValueError(f"batches must be (R, Q, d), not "
+                             f"{tuple(batches.shape)}")
+        R, Q, _ = batches.shape
+        adaptive = bool(adaptive_qc) and not self.queries_per_cluster
+        params = _query_params(self, Q, k, n_probes, pass_1)
+        floors, key, fresh = (0, 0), None, False
+        if adaptive:
+            params, floors, key, fresh = _stream_adaptive_params(
+                self, batches, k, n_probes, pass_1, params)
+        k, n_probes, pass_1, r, r_tail, qc, qc0 = params
+        scan_impl = self._scan_engine()
+        dropped = torch.zeros((), dtype=torch.int64, device=self.device)
+        outs = []
+        for b in range(R):
+            out, drop = self._bucket_query(batches[b], params, scan_impl)
+            outs.append(out)
+            dropped = dropped + drop
+        out = torch.stack(outs) if outs else torch.zeros(
+            (0, Q, k), dtype=torch.int32, device=self.device)
+        if device_out:
+            return out, dropped
+        dropped = int(dropped)
+        if adaptive and dropped:
+            _refresh_stream_floors(self, key, batches, n_probes,
+                                   just_measured=fresh)
+        out = self._map_labels(out)
+        if with_stats:
+            return out, {
+                "dropped_probe_pairs": dropped,
+                "total_probe_pairs": R * Q * n_probes,
+                "queries_per_cluster_cap": qc,
+                "queries_per_cluster_cap_round0": qc0,
+                "adaptive_qc_floors": floors if adaptive else None,
+                "pass_1": pass_1,
+            }
+        return out
+
+    def _check_built(self):
+        if self.csr_codes is None:
+            raise RuntimeError(
+                "IVF index is empty: call fit(X) and build(X) before query")
+
+    def _check_exact(self):
+        if self.scan_impl == "exact" and self.csr_vecs is None:
+            raise RuntimeError(
+                "exact mode needs the vector tiles: switch engines with "
+                "set_scan_impl('exact'), not by assignment")
+
+    def _scan_engine(self) -> str:
+        """The bucket-mode engine: 'exact', 'xla', or 'fused'. 'auto' is
+        'fused' when the fold encoding holds the longest list and 'xla'
+        otherwise (the JAX package's ``_fused_ok`` less its VMEM test,
+        which has no counterpart on the card); an explicit 'fused' on
+        such a list raises the encoding's ValueError."""
+        self._check_exact()
+        if self.scan_impl in ("exact", "xla"):
+            return self.scan_impl
+        B_pad = 2 * round_up(self.pq.center_blocks.shape[0] // 2, 8)
+        table_dtype = (torch.int8 if self.pq.table_dtype == "int8"
+                       else torch.bfloat16)
+        try:
+            fold_encoding(table_dtype, B_pad, self.max_tiles)
+        except ValueError:
+            if self.scan_impl == "fused":
+                raise
+            return "xla"
+        return "fused"
+
+    def _bucket_query(self, q, params, scan_impl):
+        """One bucket-mode batch: (ids (Q, k), dropped pairs tensor)."""
+        k, n_probes, pass_1, r, r_tail, qc, qc0 = params
+        return _ivf_query(
+            q, self.pq, self.active_centers,
+            self.csr_vecs if scan_impl == "exact" else self.csr_codes,
+            self.csr_ids, self.tile_offsets, self.list_counts, self.data,
+            self.csr_raw, metric=self.metric, k=k, n_probes=n_probes,
+            pass_1=pass_1, r=r, r_tail=r_tail, qc=qc, qc0=qc0,
+            max_tiles=self.max_tiles, build_probes=self.build_probes,
+            fold_mult=self.fold_mult, scan_impl=scan_impl)
+
+    def _map_labels(self, out):
+        """Positional ids -> user labels (-1 stays -1), on the device."""
+        if self.labels is None:
+            return out
+        return torch.where(out >= 0, self.labels[out.clamp(min=0).long()],
+                           -1)
+
 
 def _check_scan_impl(scan_impl):
-    if scan_impl == "xla":
-        raise _not_ported("scan_impl='xla'", "item 5")
-    if scan_impl not in ("auto", "fused", "exact"):
+    if scan_impl not in SCAN_IMPLS:
         raise ValueError(f"unknown scan_impl {scan_impl!r}")
+
+
+def _csr_raw_rows(data, flat_ids):
+    """CSR-ordered copy of the raw rows (padding slots reuse row 0; they
+    are masked by validity wherever the copy is read)."""
+    return data[flat_ids.clamp(min=0).long()]
+
+
+def _tiles_to_dense(csr_tiles, tile_offsets, max_tiles: int):
+    """Each list's ``max_tiles`` tiles from ``tile_offsets`` as a dense
+    (..., max_tiles * 128, X) view of the [T, X, 128] tiles
+    (tile_offsets of any shape (...,); reads past a list run into the
+    next one and are masked by the counts downstream)."""
+    T = csr_tiles.shape[0]
+    idx = (tile_offsets[..., None].long()
+           + torch.arange(max_tiles, device=csr_tiles.device)).clamp(
+               max=T - 1)
+    tiles = csr_tiles[idx].transpose(-1, -2)          # (..., mt, 128, X)
+    return tiles.reshape(tiles.shape[:-3]
+                         + (max_tiles * LANE_TILE, tiles.shape[-1]))
+
+
+def _rows_of(tile_offsets, cap: int, n_rows: int):
+    """Flat rows (..., cap) of each list's slots (clipped to the last
+    row; slots past a list's end are masked by the counts)."""
+    rows = ((tile_offsets.long() * LANE_TILE)[..., None]
+            + torch.arange(cap, device=tile_offsets.device))
+    return rows.clamp(max=n_rows - 1)
 
 
 def _aug_dim(d: int) -> int:
@@ -389,7 +562,8 @@ def _exact_widths(mult, max_tiles, n_active, qc, qc0, k, pass_1,
             base)
 
 
-def _query_params(self, Q, k, n_probes, pass_1):
+def _query_params(self, Q, k, n_probes, pass_1, qc_min=0, qc0_min=0,
+                  n_active=None, n_probes_max=None):
     """(k, n_probes, pass_1, r, r_tail, qc, qc0) for a batch of Q.
 
     r: per-pair candidate depth of each query's nearest list; r_tail:
@@ -397,14 +571,25 @@ def _query_params(self, Q, k, n_probes, pass_1):
     (query slots per list) of the tail rounds and of round 0. In the
     exact engine r and r_tail only set the fold widths (see
     ``_exact_widths``): exact distances need no depth against estimate
-    noise, but two of a list's top-k in one fold class lose one."""
-    n_active = self.active_centers.shape[0]
-    n_probes = min(n_probes, n_active)
+    noise, but two of a list's top-k in one fold class lose one.
+
+    ``qc_min``/``qc0_min``: capacity floors from a measured per-list
+    load (the stream's pre-pass); they raise the mean-load sizing and
+    never lower it, and a ``queries_per_cluster`` pin overrides both.
+    ``n_active``: the list count the capacities and fold budgets are
+    sized against (default: the index's active lists).
+    ``n_probes_max``: the probe clamp (default: the same count)."""
+    if n_active is None:
+        n_active = self.active_centers.shape[0]
+    n_probes = min(n_probes, n_probes_max if n_probes_max is not None
+                   else self.active_centers.shape[0])
     k = min(k, int(self.data.shape[0]))
     cap = self.max_tiles * LANE_TILE
     qc = self.queries_per_cluster or max(
-        8, round_up(5 * Q * n_probes // (2 * max(n_active, 1)) + 1, 8))
-    qc0 = self.queries_per_cluster or default_qc0(Q, n_active)
+        8, round_up(5 * Q * n_probes // (2 * max(n_active, 1)) + 1, 8),
+        qc_min)
+    qc0 = self.queries_per_cluster or max(default_qc0(Q, n_active),
+                                          qc0_min)
     if self.scan_impl == "exact":
         r, r_tail, pass_1 = _exact_widths(
             self.fold_mult or FOLD_MULT, self.max_tiles, n_active, qc, qc0,
@@ -419,10 +604,13 @@ def _query_params(self, Q, k, n_probes, pass_1):
     return k, n_probes, pass_1, r, r_tail, qc, qc0
 
 
-def _qc_caps(self, Q, n_probes, r, r_tail, qc, qc0):
+def _qc_caps(self, Q, n_probes, r, r_tail, qc, qc0, n_active=None):
     """Can't-drop bucket capacities for the drop-retry escalation,
-    bounded by ``scan_budget_bytes`` of (C, qc, S) int32 fold grid."""
-    n_active = self.active_centers.shape[0]
+    bounded by ``scan_budget_bytes`` of (C, qc, S) int32 fold grid.
+    ``n_active``: the list count to size against (default: the
+    index's active lists)."""
+    if n_active is None:
+        n_active = self.active_centers.shape[0]
     s0_w = _fold_tiles(r, self.max_tiles, self.fold_mult) * LANE_TILE
     st_w = _fold_tiles(r_tail, self.max_tiles, self.fold_mult) * LANE_TILE
     budget = self.scan_budget_bytes
@@ -433,22 +621,124 @@ def _qc_caps(self, Q, n_probes, r, r_tail, qc, qc0):
     return qc_full, qc0_full
 
 
-def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
-                       list_counts, qc: int, r: int, max_tiles: int,
-                       fold_mult: int, exact: bool = False):
-    """One bucketed scan round over a probe subset.
+# ------------------------------------------------------ stream capacities
 
-    probe_sub: (Q, Ps) list ids. Buckets the (query, probe) pairs by
-    list (stable sort + position in run, capacity ``qc`` per list),
-    scans every list once for all its queries with ``scan_fold_csr``
-    (or, ``exact``, with ``scan_exact_csr``: tables_flat then holds the
-    augmented queries and csr_codes the vector tiles) and hands each
-    pair its fold row. Returns ``(enc int32[Q, Ps, S],
-    rowbase int64[Q, Ps], dropped)``: the encoded pool, each pair's
-    first flat row, and the count of pairs that overflowed a bucket.
-    """
+
+def _stream_adaptive_params(self, batches, k_arg, p_arg, p1_arg, params,
+                            Q=None, n_active=None, n_probes_max=None):
+    """The stream's bucket capacities: the peak per-list load, measured
+    once per (Q, n_probes) shape and cached in ``_stream_qc_floors``,
+    clamped by the same budget as the drop-retry caps, and injected into
+    ``_query_params`` as floors. Returns ``(params, floors applied,
+    cache key, measured_now)``; ``measured_now`` tells the caller the
+    floors come from this very stream, so that a drop can only be the
+    budget clamp. ``Q``/``n_active``/``n_probes_max`` are
+    ``_query_params``' views; the floors are also clamped by ``Q``."""
+    k, n_probes, pass_1, r, r_tail, qc, qc0 = params
+    if Q is None:
+        Q = batches.shape[1]
+    cache = getattr(self, "_stream_qc_floors", None)
+    if cache is None:
+        cache = self._stream_qc_floors = {}
+    key = (Q, n_probes)
+    measured_now = key not in cache
+    if measured_now:
+        m0, mt = _stream_peak_loads(batches, self.active_centers,
+                                    n_probes=n_probes, metric=self.metric)
+        cache[key] = (_qc_bucket(m0), _qc_bucket(mt))
+    floors = cache[key]
+    if floors[0] > qc0 or floors[1] > qc:
+        qc_full, qc0_full = _qc_caps(self, Q, 1, r, r_tail, qc, qc0,
+                                     n_active=n_active)
+        f0 = min(floors[0], qc0_full)
+        ft = min(floors[1], qc_full)
+        params = _query_params(self, Q, k_arg, p_arg, p1_arg,
+                               qc_min=ft, qc0_min=f0, n_active=n_active,
+                               n_probes_max=n_probes_max)
+        floors = (f0, ft)   # what the scan runs at, clamp included
+    return params, floors, key, measured_now
+
+
+def _refresh_stream_floors(self, key, batches, n_probes,
+                           just_measured=False):
+    """A host-path stream dropped pairs despite its measured floors.
+    Either the queries drifted since the floors were measured (measure
+    again on this stream, so the next same-shape stream is clean), or
+    the budget clamp holds the capacity below the true peak (measuring
+    again returns the same floors: mark the (shape, budget) final in
+    ``_stream_floor_final`` and stop measuring). ``just_measured``: the
+    floors come from this stream, so it can only be the clamp."""
+    final = getattr(self, "_stream_floor_final", None)
+    if final is None:
+        final = self._stream_floor_final = set()
+    fkey = (key, self.scan_budget_bytes)
+    if fkey in final:
+        return
+    if just_measured:
+        final.add(fkey)
+        return
+    m0, mt = _stream_peak_loads(batches, self.active_centers,
+                                n_probes=n_probes, metric=self.metric)
+    floors = (_qc_bucket(m0), _qc_bucket(mt))
+    if floors == self._stream_qc_floors.get(key):
+        final.add(fkey)
+    self._stream_qc_floors[key] = floors
+
+
+def _qc_bucket(n: int) -> int:
+    """A measured per-list load rounded up to a power-of-two capacity
+    (>= 8), so capacities move in coarse steps."""
+    if n <= 0:
+        return 0
+    return max(8, 1 << (int(n) - 1).bit_length())
+
+
+def _stream_peak_loads(batches, active_centers, *, n_probes: int,
+                       metric: str):
+    """Host ints (round-0 peak, tail peak): the most (query, probe)
+    pairs any list receives in one batch of the stream, split into each
+    query's nearest list and its other probes, the loads qc0 and qc
+    must cover. The probe selection is ``_ivf_query``'s own, batch by
+    batch at the same shapes, so the counted loads are the scan's."""
+    C = active_centers.shape[0]
+    dev = active_centers.device
+    peaks = torch.zeros(2, dtype=torch.int64, device=dev)
+    for q in batches:
+        sel = _probe_select(_normalize(q, metric), active_centers, n_probes)
+        for i, lists in enumerate((sel[:, 0], sel[:, 1:].reshape(-1))):
+            load = torch.zeros(C, dtype=torch.int64, device=dev).scatter_add_(
+                0, lists, torch.ones_like(lists))
+            peaks[i] = torch.maximum(peaks[i], load.max())
+    m0, mt = peaks.tolist()
+    return m0, mt
+
+
+# --------------------------------------------------------- bucket mode
+
+
+def _normalize(q, metric: str):
+    if metric == "angular":
+        return q / torch.linalg.norm(q, dim=1, keepdim=True).clamp(min=1e-12)
+    return q
+
+
+def _probe_select(q, active_centers, P: int):
+    """(Q, P) nearest lists by exact fp32 distance to the active
+    centers, nearest first, ties to the lower list."""
+    qn = torch.einsum("qd,qd->q", q, q)
+    cn = torch.einsum("cd,cd->c", active_centers, active_centers)
+    d2c = qn[:, None] + cn[None, :] - 2.0 * (q @ active_centers.T)
+    return smallest_k(d2c, P)[1]
+
+
+def _bucket_pairs(probe_sub, C: int, qc: int):
+    """Bucket the (query, probe) pairs of ``probe_sub`` (Q, Ps) by list:
+    stable sort, position in run, capacity ``qc`` per list. Returns
+    ``(qgrid int64[C, qc] query per slot (-1 empty), pair_idx
+    int64[Q, Ps] each pair's row of the (C * qc) grid, in_slot
+    bool[Q, Ps], dropped)``: pairs past a full bucket are dropped and
+    counted."""
     Q, Ps = probe_sub.shape
-    C = tile_offsets.shape[0]
     dev = probe_sub.device
     pairs = probe_sub.reshape(-1)
     q_of_pair = torch.arange(Q * Ps, device=dev) // Ps
@@ -465,30 +755,96 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
     # a spare row C that is cut off (the JAX version drops them)
     qgrid = torch.full((C + 1, qc), -1, dtype=torch.int64, device=dev)
     qgrid[torch.where(in_cap, sorted_c, C), slot.clamp(max=qc - 1)] = sorted_q
-    qgrid = qgrid[:C]
     slot_orig = torch.empty_like(slot).scatter_(0, order, slot).reshape(Q, Ps)
+    pair_idx = probe_sub * qc + slot_orig.clamp(max=qc - 1)
+    return qgrid[:C], pair_idx, slot_orig < qc, (~in_cap).sum()
 
+
+def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
+                       list_counts, qc: int, r: int, max_tiles: int,
+                       fold_mult: int, scan_impl: str = "fused"):
+    """One bucketed scan round over a probe subset.
+
+    probe_sub: (Q, Ps) list ids. Scans every list once for all its
+    bucketed queries and hands each pair its share.
+
+    'fused' runs ``scan_fold_csr`` ('exact': ``scan_exact_csr``, with
+    tables_flat the augmented queries and csr_codes the vector tiles)
+    and returns ``(enc int32[Q, Ps, S], rowbase int64[Q, Ps],
+    dropped)``: each pair's encoded fold row and its list's first flat
+    row. 'xla' returns ``(vals f32[Q, Ps, r], rows int64[Q, Ps, r],
+    dropped)``: each pair's r smallest estimates (+inf = no candidate)
+    and their flat rows.
+    """
+    C = tile_offsets.shape[0]
+    qgrid, pair_idx, in_slot, dropped = _bucket_pairs(probe_sub, C, qc)
     t_sel = tables_flat[qgrid.clamp(min=0)]           # (C, qc, M)
-    scan = scan_exact_csr if exact else scan_fold_csr
+    if scan_impl == "xla":
+        vals, rows = _xla_scan(t_sel, csr_codes, tile_offsets, list_counts,
+                               r, max_tiles)          # (C, qc, r)
+        vals = vals.reshape(C * qc, r)[pair_idx]
+        rows = rows.reshape(C * qc, r)[pair_idx]
+        return (torch.where(in_slot[:, :, None], vals, float("inf")),
+                torch.where(in_slot[:, :, None], rows, 0), dropped)
+    scan = scan_exact_csr if scan_impl == "exact" else scan_fold_csr
     enc = scan(t_sel, csr_codes, tile_offsets, list_counts,
                fold_tiles=_fold_tiles(r, max_tiles, fold_mult),
                max_tiles=max_tiles)                   # (C, qc, S)
-    S = enc.shape[2]
-    pair_idx = probe_sub * qc + slot_orig.clamp(max=qc - 1)
-    my_enc = enc.reshape(C * qc, S)[pair_idx]         # (Q, Ps, S)
-    my_enc = torch.where((slot_orig < qc)[:, :, None], my_enc, ENC_INVALID)
+    my_enc = enc.reshape(C * qc, enc.shape[2])[pair_idx]  # (Q, Ps, S)
+    my_enc = torch.where(in_slot[:, :, None], my_enc, ENC_INVALID)
     rowbase = (tile_offsets.long() * LANE_TILE)[probe_sub.clamp(max=C - 1)]
-    return my_enc, rowbase, (~in_cap).sum()
+    return my_enc, rowbase, dropped
 
 
-def _select_pool_enc(pools, bases, p1: int, col_bits: int, csr_ids):
+def _xla_scan(t_sel, csr_codes, tile_offsets, list_counts, r: int,
+              max_tiles: int):
+    """The 'xla' engine's list scan in plain torch (no kernel).
+
+    t_sel: [C, qc, 16B] block-major tables (value v of block b at
+    column 16b + v), int8, bf16 or f32. Each list's ``max_tiles`` tiles
+    are densified and its codes one-hot encoded in f32; one batched
+    product per step of lists gives every (slot, point) estimate (exact
+    for int8 tables: every partial sum is an integer below 2^24), and
+    the r smallest per slot, ties to the lower position, are kept.
+    Returns ``(vals f32[C, qc, r], rows int64[C, qc, r])``."""
+    C, qc, M = t_sel.shape
+    B = M // 16
+    dev = t_sel.device
+    cap = max_tiles * LANE_TILE
+    n_rows = csr_codes.shape[0] * LANE_TILE
+    step = max(1, XLA_CHUNK_BYTES // (cap * M * 4))
+    pos = torch.arange(cap, device=dev)
+    block_base = 16 * torch.arange(B, device=dev)
+    vals, rows = [], []
+    for c0 in range(0, C, step):
+        toff = tile_offsets[c0:c0 + step]
+        n = toff.shape[0]
+        codes = unpack_codes(_tiles_to_dense(csr_codes, toff,
+                                             max_tiles))[..., :B]
+        onehot = torch.zeros((n, cap, M), dtype=torch.float32, device=dev)
+        onehot.scatter_(2, codes.long() + block_base, 1.0)
+        est = torch.bmm(t_sel[c0:c0 + step].float(),
+                        onehot.transpose(1, 2))      # (n, qc, cap)
+        in_list = pos < list_counts[c0:c0 + step, None]
+        est = torch.where(in_list[:, None, :], est, float("inf"))
+        v, idx = smallest_k(est, r)
+        vals.append(v)
+        rows.append(((toff.long() * LANE_TILE)[:, None, None] + idx).clamp(
+            max=n_rows - 1))
+    return torch.cat(vals), torch.cat(rows)
+
+
+def _select_pool_enc(pools, bases, p1: int, col_bits: int, csr_ids,
+                     decode_ids: bool = True):
     """Global candidate selection in the encoded int32 domain.
 
     pools: per-round encoded fold buffers [(Q, Ps_i, S_i) int32];
     bases: matching flat-row bases [(Q, Ps_i)]. Keeps the p1 smallest
     encodings per query (the encoding is monotone in the estimate, and
     its position bits break ties) and decodes only those. Returns
-    (candidate ids int32[Q, p1], -1 = invalid).
+    ``(cand ids int32[Q, p1] (-1 = invalid), rows int64[Q, p1],
+    enc_sel int32[Q, p1])``; with ``decode_ids=False`` (rescore_rows)
+    cand is None and the caller decodes ids for the winners only.
     """
     Q = pools[0].shape[0]
     pool = torch.cat([p.reshape(Q, -1) for p in pools], dim=1)
@@ -505,80 +861,250 @@ def _select_pool_enc(pools, bases, p1: int, col_bits: int, csr_ids):
     rows = rows.clamp(max=csr_ids.shape[0] - 1)
     valid = enc_sel < ENC_INVALID
     rows = torch.where(valid, rows, 0)
-    return torch.where(valid, csr_ids[rows], -1)
+    if not decode_ids:
+        return None, rows, enc_sel
+    return torch.where(valid, csr_ids[rows], -1), rows, enc_sel
 
 
 def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
-               list_counts, data, *, metric: str, k: int, n_probes: int,
-               pass_1: int, r: int, r_tail: int, qc: int, qc0: int,
-               max_tiles: int, build_probes: int, fold_mult: int,
-               exact: bool = False):
-    """The batched IVF query: returns (ids (Q, k), dropped pairs).
+               list_counts, data, csr_raw=None, *, metric: str, k: int,
+               n_probes: int, pass_1: int, r: int, r_tail: int, qc: int,
+               qc0: int, max_tiles: int, build_probes: int, fold_mult: int,
+               scan_impl: str = "fused"):
+    """The batched bucket-mode IVF query: returns (ids (Q, k), dropped
+    pairs).
 
-    ``exact``: csr_codes holds the exact engine's vector tiles, stage 1
-    augments the queries in place of building tables, and the scan runs
-    ``scan_exact_csr``.
+    ``scan_impl``: 'fused' (K1 over the codes), 'exact' (csr_codes
+    holds the exact engine's vector tiles, stage 1 augments the queries
+    in place of building tables, and the scan runs K2) or 'xla' (the
+    plain torch scan, ``_xla_scan``). ``csr_raw``: the rescore_rows
+    copy, read by 'fused' and 'exact'.
 
     Stages: (1) distance tables; (2) the P nearest lists by exact fp32
     distance to the active centers; (3) bucketed list scans in two
     rounds, each query's nearest list with per-pair depth r and the
     other probes with r_tail; (4) selection of the f * pass_1 smallest
-    encodings, f = min(build_probes, n_probes) (a spilled point appears
+    candidates, f = min(build_probes, n_probes) (a spilled point appears
     in up to f probed lists); (5) exact fp32 rescore, dedup when f > 1,
     top-k.
     """
     Q, d = q.shape
     P = n_probes
-    if metric == "angular":
-        q = q / torch.linalg.norm(q, dim=1, keepdim=True).clamp(min=1e-12)
-    if exact:
+    q = _normalize(q, metric)
+    if scan_impl == "exact":
         tables_flat = _augment_queries(q)
     else:
         tables = _build_tables(q, pq.center_blocks, pq.R,
                                pq.dims_per_block, True, pq.table_dtype).tables
         B = tables.shape[1]
-        tables_flat = permute_tables_csr(tables.reshape(Q, B * 16), B)
-        if tables_flat.dtype == torch.float32:
-            # the float fold encodes bf16 value bits; pre-round
-            tables_flat = tables_flat.to(torch.bfloat16)
+        tables_flat = tables.reshape(Q, B * 16)
+        if scan_impl == "fused":
+            tables_flat = permute_tables_csr(tables_flat, B)
+            if tables_flat.dtype == torch.float32:
+                # the float fold encodes bf16 value bits; pre-round
+                tables_flat = tables_flat.to(torch.bfloat16)
 
     # -- probe selection, exact fp32
-    qn = torch.einsum("qd,qd->q", q, q)
-    cn = torch.einsum("cd,cd->c", active_centers, active_centers)
-    d2c = qn[:, None] + cn[None, :] - 2.0 * (q @ active_centers.T)
-    _, probe_sel = smallest_k(d2c, P)                 # (Q, P)
+    probe_sel = _probe_select(q, active_centers, P)   # (Q, P)
 
     # -- scan rounds
+    kw = dict(max_tiles=max_tiles, fold_mult=fold_mult, scan_impl=scan_impl)
     v0, rows0, dropped = _bucket_scan_round(
         probe_sel[:, :1], tables_flat, csr_codes, tile_offsets, list_counts,
-        qc=qc0, r=r, max_tiles=max_tiles, fold_mult=fold_mult, exact=exact)
+        qc=qc0, r=r, **kw)
     pools, bases = [v0], [rows0]
     if P > 1:
         v1, rows1, drop1 = _bucket_scan_round(
             probe_sel[:, 1:], tables_flat, csr_codes, tile_offsets,
-            list_counts, qc=qc, r=r_tail, max_tiles=max_tiles,
-            fold_mult=fold_mult, exact=exact)
+            list_counts, qc=qc, r=r_tail, **kw)
         pools.append(v1)
         bases.append(rows1)
         dropped = dropped + drop1
 
-    # -- selection on the encodings
+    # -- selection
     f = min(build_probes, n_probes)
+    if scan_impl == "xla":
+        flat_vals = torch.cat([v.reshape(Q, -1) for v in pools], dim=1)
+        flat_rows = torch.cat([v.reshape(Q, -1) for v in bases], dim=1)
+        p1 = min(f * pass_1, flat_vals.shape[1])
+        vsel, top_pos = smallest_k(flat_vals, p1)
+        rows_sel = torch.gather(flat_rows, 1, top_pos)
+        cand = torch.where(torch.isfinite(vsel), csr_ids[rows_sel], -1)
+        return _rescore_topk(cand, data, q, k, f, p1), dropped
     width = sum(p.shape[1] * p.shape[2] for p in pools)
     p1 = min(f * pass_1, width)
-    col_bits = 16 if exact else fold_encoding(
+    col_bits = 16 if scan_impl == "exact" else fold_encoding(
         tables_flat.dtype, tables_flat.shape[1] // 16, max_tiles)[0]
-    cand = _select_pool_enc(pools, bases, p1, col_bits, csr_ids)
+    cand, rows_sel, enc_sel = _select_pool_enc(
+        pools, bases, p1, col_bits, csr_ids, decode_ids=csr_raw is None)
+    if csr_raw is None:
+        return _rescore_topk(cand, data, q, k, f, p1), dropped
 
-    # -- exact fp32 rescore (+ dedup of build-spill duplicates)
+    # -- rescore_rows: rescore by flat row, decode ids for winners only
+    diff = csr_raw[rows_sel] - q[:, None, :]          # (Q, p1, d)
+    d2 = torch.einsum("qrd,qrd->qr", diff, diff)
+    d2 = torch.where(enc_sel < ENC_INVALID, d2, float("inf"))
+    return _final_topk(
+        d2, lambda pos: csr_ids[torch.gather(rows_sel, 1, pos)], k, f,
+        p1), dropped
+
+
+def _rescore_topk(cand, data, q, k: int, f: int, p1: int):
+    """Stage 5: exact fp32 squared distances of the candidate ids
+    (Q, p1) (-1 = invalid), then ``_final_topk``."""
     diff = data[cand.clamp(min=0).long()] - q[:, None, :]  # (Q, p1, d)
     d2 = torch.einsum("qrd,qrd->qr", diff, diff)
     d2 = torch.where(cand >= 0, d2, float("inf"))
+    return _final_topk(d2, lambda pos: torch.gather(cand, 1, pos), k, f,
+                       p1)
+
+
+def _final_topk(d2, ids_at, k: int, f: int, p1: int):
+    """The top k of rescored candidates (Q, p1), -1 where none is valid.
+    ``ids_at(pos)`` gives the ids of candidate positions; it is called
+    on the k * f sliver when f > 1 (build-spill duplicates are removed
+    there) and on the k winners otherwise, so ids decode late."""
     if f > 1:
         _, best = smallest_k(d2, min(k * f, p1))
-        cand = torch.gather(cand, 1, best)
         d2 = torch.gather(d2, 1, best)
+        cand = torch.where(torch.isfinite(d2), ids_at(best), -1)
         cand, d2 = dedup_candidates(cand, d2)
-    out_d2, best = smallest_k(d2, k)
-    out = torch.gather(cand, 1, best)
-    return torch.where(torch.isfinite(out_d2), out, -1), dropped
+        out_d2, best = smallest_k(d2, k)
+        out = torch.gather(cand, 1, best)
+    else:
+        out_d2, best = smallest_k(d2, k)
+        out = ids_at(best)
+    return torch.where(torch.isfinite(out_d2), out, -1)
+
+
+# --------------------------------------------------------- gather mode
+
+
+def _ivf_query_gather(q, pq, active_centers, csr_codes, csr_ids,
+                      tile_offsets, list_counts, data, *, metric: str,
+                      k: int, n_probes: int, pass_1: int, max_tiles: int,
+                      exact: bool = False):
+    """Latency-mode query: each query gathers its probed lists.
+
+    Every probed list is densified to ``max_tiles`` tiles, and each
+    query sums its own tables over their codes (``_gather_estimates``);
+    ``exact``: csr_codes holds the exact engine's vector tiles, and one
+    dot product with the augmented query gives the bf16-rounded
+    distance. The whole (Q, P * cap) pool is deduplicated, cut to
+    pass_1, rescored in fp32 and cut to k. No bucketing, so nothing is
+    dropped, and no kernel: at Q * P <= 64 the work is small.
+    """
+    Q, _ = q.shape
+    cap = max_tiles * LANE_TILE
+    q = _normalize(q, metric)
+    probe_sel = _probe_select(q, active_centers, n_probes)  # (Q, P)
+    toff_p = tile_offsets[probe_sel]
+    rows_p = _rows_of(toff_p, cap, csr_ids.shape[0])  # (Q, P, cap)
+    in_list = (torch.arange(cap, device=q.device)
+               < list_counts[probe_sel][:, :, None])
+    ids_p = torch.where(in_list, csr_ids[rows_p], -1)
+    dense = _tiles_to_dense(csr_codes, toff_p, max_tiles)
+    if exact:
+        qa = _augment_queries(q).float()
+        est = torch.einsum("qpcd,qd->qpc", dense.float(), qa)
+    else:
+        tables = _build_tables(q, pq.center_blocks, pq.R, pq.dims_per_block,
+                               True, pq.table_dtype).tables
+        est = _gather_estimates(tables, unpack_codes(dense))
+    est = torch.where(ids_p >= 0, est, float("inf"))
+    flat_ids, flat_vals = dedup_candidates(ids_p.reshape(Q, -1),
+                                           est.reshape(Q, -1))
+    p1 = min(pass_1, flat_vals.shape[1])
+    _, top_pos = smallest_k(flat_vals, p1)
+    return _rescore_topk(torch.gather(flat_ids, 1, top_pos), data, q, k, 1,
+                         p1)
+
+
+def _gather_estimates(tables, codes):
+    """PQ estimates of each query over its own gathered codes.
+
+    tables: [Q, B, 16] int8, bf16 or f32; codes: uint8[Q, P, cap, >= B]
+    (storage pad blocks past B are ignored). Gathers each table entry
+    by code (no one-hot) and sums over the blocks: in int32 for int8
+    tables (exact), in f32 in block order for float ones. Returns
+    f32[Q, P, cap]."""
+    Q, B, _ = tables.shape
+    shape = codes.shape[:-1]
+    idx = (codes[..., :B].long()
+           + 16 * torch.arange(B, device=codes.device)).reshape(Q, -1)
+    vals = torch.gather(tables.reshape(Q, B * 16), 1, idx).reshape(
+        shape + (B,))
+    if tables.dtype == torch.int8:
+        return vals.to(torch.int32).sum(-1).to(torch.float32)
+    vals = vals.to(torch.float32)
+    est = vals[..., 0].clone()
+    for b in range(1, B):
+        est += vals[..., b]
+    return est
+
+
+# -------------------------------------------------------------- tuning
+
+
+class TuneResult(NamedTuple):
+    """Result of ``tune_n_probes``."""
+    n_probes: int
+    pass_1: int
+    recall: float
+    recalls: dict   # {(n_probes, pass_1): measured recall}
+
+
+def tune_n_probes(ivf, queries, true_neighbours, k=10, target_recall=0.9,
+                  max_probes=None, pass1_mults=(2.0, 4.0, 8.0),
+                  verbose=False):
+    """Cheapest (n_probes, pass_1) reaching ``target_recall`` on a
+    validation set, searched as the JAX package searches it.
+
+    n_probes grows (by about its square root each step) until the
+    widest pass-1 pool reaches the target; within that n_probes the
+    pool multipliers ``pass1_mults`` (multiples of (P + 1) k + 1) are
+    tried from the narrowest up and the first that reaches the target
+    wins. On an exact-engine index pass_1 is the rescore sliver, so the
+    pools are ``mult * k * n_probes``. If no n_probes reaches the
+    target, the best measured point is returned. Returns
+    ``TuneResult(n_probes, pass_1, recall, recalls)``.
+    """
+    queries = as_f32(queries, ivf.device)
+    if isinstance(true_neighbours, torch.Tensor):
+        true_neighbours = true_neighbours.cpu().numpy()
+    trus = [set(np.asarray(t).tolist()) for t in true_neighbours]
+    max_probes = max_probes or ivf.active_centers.shape[0]
+    mults = sorted(pass1_mults)
+    recalls = {}
+    exact = ivf.scan_impl == "exact"
+
+    def measure(n_probes, mult):
+        if exact:  # pass_1 = rescore-sliver width (default 4*k*P)
+            p1 = max(int(mult * k * max(n_probes, 1)), k)
+        else:
+            p1 = int(mult * ((n_probes + 1) * k + 1))
+        if (n_probes, p1) in recalls:
+            return p1, recalls[(n_probes, p1)]
+        guesses = ivf.query(queries, k=k, n_probes=n_probes,
+                            pass_1=p1).cpu().numpy()
+        recall = float(np.mean(
+            [len(trus[i] & set(g.tolist())) / max(len(trus[i]), 1)
+             for i, g in enumerate(guesses)]))
+        recalls[(n_probes, p1)] = recall
+        if verbose:
+            print(f"tune: n_probes={n_probes} pass_1={p1} "
+                  f"recall={recall:.4f}")
+        return p1, recall
+
+    n_probes = 1
+    while n_probes <= max_probes:
+        p1, recall = measure(n_probes, mults[-1])
+        if recall >= target_recall:
+            for mult in mults[:-1]:
+                p1_lo, recall_lo = measure(n_probes, mult)
+                if recall_lo >= target_recall:
+                    return TuneResult(n_probes, p1_lo, recall_lo, recalls)
+            return TuneResult(n_probes, p1, recall, recalls)
+        n_probes += max(int(n_probes ** 0.5), 1)
+    best = max(recalls, key=recalls.get)
+    return TuneResult(best[0], best[1], recalls[best], recalls)

@@ -22,7 +22,13 @@ from .quantization import (
     tables_bf16,
 )
 from .scan import estimate_scan
-from .topk import dedup_candidates, smallest_k
+from .topk import (
+    dedup_candidates,
+    masked_smallest_k,
+    merge_topk,
+    smallest_k,
+    streaming_topk_init,
+)
 
 __all__ = [
     "LANE_TILE", "estimate_scan_tiled", "estimate_scan_tiled_reference",
@@ -32,5 +38,6 @@ __all__ = [
     "kmeans_fit", "pack_codes", "unpack_codes", "QuantizedTables",
     "block_dists_blocked", "dequantize_estimates", "quantize_tables_signed",
     "quantize_tables_unsigned", "tables_bf16", "estimate_scan",
-    "dedup_candidates", "smallest_k",
+    "dedup_candidates", "masked_smallest_k", "merge_topk", "smallest_k",
+    "streaming_topk_init",
 ]

@@ -112,12 +112,15 @@ def permute_tables_csr(tables_flat: torch.Tensor, B: int) -> torch.Tensor:
     packed width, zero rows for phantom pad blocks."""
     Bs_pad = round_up(B // 2, 8)
     B_pad = 2 * Bs_pad
-    perm = torch.cat([torch.arange(0, B_pad, 2), torch.arange(1, B_pad, 2)])
+    # made on the tables' device: a host-to-device copy would wait for
+    # the host, which a stream of queries must never do
+    perm = torch.arange(B_pad, device=tables_flat.device).reshape(
+        Bs_pad, 2).T.reshape(-1)                      # evens, then odds
     shape = tables_flat.shape[:-1]
     t = tables_flat.reshape(shape + (B, 16))
     if B_pad != B:
         t = torch.nn.functional.pad(t, (0, 0, 0, B_pad - B))
-    t = t[..., perm.to(t.device), :]
+    t = t[..., perm, :]
     return t.transpose(-1, -2).reshape(shape + (16 * B_pad,))
 
 

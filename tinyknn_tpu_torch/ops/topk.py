@@ -44,3 +44,32 @@ def dedup_candidates(ids: torch.Tensor, vals: torch.Tensor):
     out_ids = torch.empty_like(ids).scatter_(-1, order, s_ids)
     out_vals = torch.empty_like(vals).scatter_(-1, order, s_vals)
     return out_ids, out_vals
+
+
+def masked_smallest_k(vals: torch.Tensor, mask: torch.Tensor, k: int):
+    """k smallest entries where ``mask`` is True: (values, indices),
+    ascending; masked-out entries come back (if at all) at the tail with
+    value +inf and index -1."""
+    vals = torch.where(mask, vals.to(torch.float32), INF_SCORE)
+    best, idx = smallest_k(vals, k)
+    return best, torch.where(torch.isfinite(best), idx, -1)
+
+
+def merge_topk(vals_a, idx_a, vals_b, idx_b):
+    """Merge candidate set b into the running state a, keeping the best
+    ``vals_a.shape[-1]`` entries (ascending; ties to a, then to the
+    lower position): the streaming analogue of heap insertion."""
+    k = vals_a.shape[-1]
+    vals = torch.cat([vals_a, vals_b], dim=-1)
+    idx = torch.cat([idx_a, idx_b], dim=-1)
+    best, pos = smallest_k(vals, k)
+    return best, torch.gather(idx, -1, pos)
+
+
+def streaming_topk_init(batch_shape, k: int, id_dtype=torch.int32,
+                        device="cpu"):
+    """Initial (vals, ids) state for ``merge_topk``: every slot empty
+    (+inf / -1), on ``device``."""
+    shape = tuple(batch_shape) + (k,)
+    return (torch.full(shape, INF_SCORE, dtype=torch.float32, device=device),
+            torch.full(shape, -1, dtype=id_dtype, device=device))

@@ -57,7 +57,44 @@ def knn_brute(X, Y, k: int, metric: str = "euclidean",
     m = Y.shape[0]
     budget_rows = max(8, (1 << 28) // max(m, 1))
     chunk = min(chunk, budget_rows - budget_rows % 8 or 8)
-    out = [smallest_k(sq_dists(X[i:i + chunk], Y), k)[1]
+    # clone: the k columns are a view of the chunk's whole (chunk, m)
+    # sort, which would otherwise stay alive until the end
+    out = [smallest_k(sq_dists(X[i:i + chunk], Y), k)[1].clone()
            for i in range(0, X.shape[0], chunk)]
     return torch.cat(out) if out else torch.zeros(
         (0, k), dtype=torch.int64, device=X.device)
+
+
+def cdist(X, Y, chunk: int | None = None) -> torch.Tensor:
+    """Squared Euclidean distances (n, m) in fp32 on X's device.
+    ``chunk`` is accepted for API parity and ignored."""
+    del chunk
+    fp32_matmuls()
+    X = torch.as_tensor(X, dtype=torch.float32)
+    return sq_dists(X, torch.as_tensor(Y, dtype=torch.float32,
+                                       device=X.device))
+
+
+def bottom_k(arr: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k smallest entries of a 1-D tensor, ascending,
+    ties to the lower index; all indices in order when k >= len."""
+    if k >= arr.shape[0]:
+        return torch.arange(arr.shape[0], device=arr.device)
+    return smallest_k(arr, k)[1]
+
+
+def bottom_k_2d(arr: torch.Tensor, k: int) -> torch.Tensor:
+    """Row-wise ``bottom_k`` of a 2-D tensor; when k >= the row length,
+    every row gets all indices in order."""
+    n, m = arr.shape
+    if k >= m:
+        return torch.arange(m, device=arr.device).expand(n, m)
+    return smallest_k(arr, k)[1]
+
+
+def knn_brute1(x, Y, k: int) -> torch.Tensor:
+    """Exact kNN of one query (d,) among the rows of Y: ``bottom_k`` of
+    the fp32 squared distances."""
+    Y = torch.as_tensor(Y, dtype=torch.float32)
+    diff = Y - torch.as_tensor(x, dtype=torch.float32, device=Y.device)
+    return bottom_k(torch.einsum("ij,ij->i", diff, diff), k)

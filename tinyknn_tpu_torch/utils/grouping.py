@@ -55,3 +55,47 @@ def invert_assignments_csr_tiled(assignments, n_lists: int,
     pos = np.arange(flat.size, dtype=np.int64) - starts[sorted_lists]
     flat_ids[tile_offsets64[sorted_lists] * tile + pos] = point_ids
     return flat_ids, tile_offsets64.astype(np.int32), counts
+
+
+def invert_assignments_csr(assignments, n_lists: int):
+    """CSR inverted lists without tiling: ``(flat_ids int32, offsets
+    int64[n_lists + 1])``; list i holds flat_ids[offsets[i]:offsets[i+1]],
+    ordered by (point, probe column)."""
+    assignments = np.asarray(assignments)
+    if assignments.ndim == 1:
+        assignments = assignments[:, None]
+    p = assignments.shape[1]
+    flat = assignments.reshape(-1).astype(np.int64)
+    counts = np.bincount(flat, minlength=n_lists).astype(np.int64)
+    offsets = np.zeros(n_lists + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    order = np.argsort(flat, kind="stable")
+    return (order // p).astype(np.int32), offsets
+
+
+def group_data_by_indices(X, indices, k: int):
+    """Group the rows of ``X`` (N, d) by ``indices`` (N, c) with values
+    in [0, k): ``(parts, ids)``, k arrays of grouped rows and the
+    matching row ids, rows within a group ordered by (probe column,
+    row id)."""
+    X = np.asarray(X)
+    indices = np.asarray(indices)
+    if indices.size and not (0 <= indices.min() and indices.max() < k):
+        raise ValueError("indices out of range")
+    n, _ = indices.shape
+    # column-major flatten: probe column 0 of every point comes first
+    flat = indices.T.reshape(-1).astype(np.int64)
+    order = np.argsort(flat, kind="stable")
+    point_ids = order % n
+    bounds = np.zeros(k + 1, dtype=np.int64)
+    np.cumsum(np.bincount(flat, minlength=k), out=bounds[1:])
+    parts, ids = [], []
+    for g in range(k):
+        sel = point_ids[bounds[g]:bounds[g + 1]]
+        if sel.size == 0:
+            parts.append(np.empty((0, X.shape[1])))
+            ids.append(np.empty(0))
+        else:
+            parts.append(X[sel])
+            ids.append(sel)
+    return parts, ids
