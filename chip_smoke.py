@@ -15,16 +15,20 @@ In order, and stopping at the first failure with a non-zero exit:
    kernel's query block): K1 scan_fold_csr for int8 tables (bit-equal),
    bf16 tables with integer values (bit-equal) and random bf16 tables
    (decoded values within 1 bf16 ulp, positions equal where values are
-   not tied); K2 scan_exact_csr on integer-valued inputs (bit-equal)
-   and random ones (the same rule as random bf16 K1); K3
-   estimate_scan_tiled for int8 tables (bit-equal) and bf16 and f32
-   tables (rtol 1e-6);
+   not tied), with every slot, with the real block count below the
+   padded one, and with 0, 1, 7, 8, 9 and all slots occupied; K2
+   scan_exact_csr on integer-valued inputs (bit-equal) and random ones
+   (the same rule as random bf16 K1); K3 estimate_scan_tiled for int8
+   and f32 tables (bit-equal) and bf16 tables (rtol 1e-6), 9 to 45
+   queries;
 4. PQ path: fits and builds IVF("angular", 1087, FastPQ(2)) on the
    GloVe-shape clustered dataset (1,183,514 x 100, made from a seed),
    queries its 10,000 queries at three points (int8 p1=84, bf16 p1=17,
    int8 p1=21), grades recall10@10 against the checked-in f64 ground
-   truth, checks K1 ran on every query, and repeats the K1 check on the
-   path's own round-0 inputs, timing K1 against its plain version there;
+   truth, checks K1 ran on every query with as many launches in the
+   warm batch as in the first, and repeats the K1 check on each K1 shape
+   the path gave (round 0 at 32 slots and the retry at 128, with the
+   batch's own slot counts), timing K1 against its plain version there;
 4b. serving path, on the same index: ``query_stream`` at int8 p1=84 and
    bf16 p1=17 (the 10k queries stacked R = 2 and 7 times, as bench.py
    builds its streams; batch 0 must equal ``query()``'s ids, no pair may
@@ -69,6 +73,13 @@ Times are host clock ending in a synchronize, or CUDA events for
 kernels (in turns: plain, kernel, kernel, plain). Every
 timed IVF query and the reference example's search calls also get a
 torch.profiler stage profile: device time per kernel.
+
+Each timed kernel call also gets its bound: the larger of the bytes it
+must move over 3.35 TB/s and its one-hot tensor-core operations over
+the int8 or bf16 peak, counting only occupied slots and real blocks
+(``k1_bound``, ``k2_bound``, ``k3_bound``). K3 is also timed against
+``torch._int_mm`` over the one-hot of the same codes (``k3_library``),
+a yardstick the port never calls; K1 and K2 have no such call.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, a JSON object describing each kernel, and the result
@@ -119,6 +130,19 @@ FLAT_GATE = 0.999
 KERNEL_TIMED_LAUNCHES = 50
 K3_TIMED_LAUNCHES = 5
 PLAIN_TIMED_LAUNCHES = 3
+# K1's slot counts held against the plain version: empty, one, around a
+# group of 8, and every slot (None: qc)
+SLOT_COUNT_CASES = (0, 1, 7, 8, 9, None)
+# published H100 SXM peaks (NVIDIA's data sheet, dense): device memory
+# bytes/s and tensor-core int8 / bf16 operations/s, f32 outside them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+NO_LIBRARY = {
+    "scan_fold_csr": "no single PyTorch call computes the encoded "
+                     "position min-fold",
+    "scan_exact_csr": "no single PyTorch call computes the fold; "
+                      "torch.bmm gives the products only",
+}
 
 
 def fold_case(seed: int, kind: str, n: int = 900, B: int = 8, C: int = 4,
@@ -284,35 +308,54 @@ def estimate_inputs(codes, tables, kind: str, device):
             t.to(device))
 
 
-def compare_estimates(got, want, floating: bool) -> float:
+def compare_estimates(got, want, floating: bool, exact=None) -> float:
     """Check K3's output against its plain version's; returns the largest
-    absolute difference. int8 tables: bit equality; float tables: rtol
-    1e-6."""
+    absolute difference. Bit equality for int8 tables, and for float
+    tables with ``exact``; else rtol 1e-6. On the card f32 tables and
+    bf16 tables (whose tensor-core products are added in f32 in the
+    plain version's order) are both designed bit-equal; bf16 is held to
+    rtol 1e-6."""
+    exact = not floating if exact is None else exact
     got, want = got.cpu().numpy(), want.cpu().numpy()
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"estimate {got.dtype}{got.shape} vs "
                              f"{want.dtype}{want.shape}")
     err = float(np.abs(got.astype(np.float64) - want).max(initial=0.0))
-    if not floating and not np.array_equal(got, want):
-        raise AssertionError(f"int8 estimates not bit-equal: max error {err}")
+    if exact and not np.array_equal(got, want):
+        raise AssertionError(f"estimates not bit-equal: max error {err}")
     if floating and not np.allclose(got, want, rtol=1e-6, atol=0):
         raise AssertionError(f"float estimates beyond rtol 1e-6: max error "
                              f"{err}")
     return err
 
 
+def slot_counts_for(s, counts, qc: int):
+    """A slot-count case of SLOT_COUNT_CASES as int32[C] beside the list
+    counts: every list gets s occupied slots (None: qc)."""
+    import torch
+    return torch.full_like(counts, qc if s is None else s)
+
+
 def check_kernel_small(device) -> float:
-    """Phase 3, K1: kernel vs plain version on skewed synthetic lists."""
+    """Phase 3, K1: kernel vs plain version on skewed synthetic lists,
+    with every slot and with the real block count (n_blocks = B < B_pad),
+    then at each slot count of SLOT_COUNT_CASES."""
     from tinyknn_tpu_torch.ops.kernels import (
         scan_fold_csr, scan_fold_csr_reference)
     err = 0.0
     for B, qc in ((8, 20), (56, 40)):
         for kind in ("int8", "bf16_int", "bf16"):
-            for W in (1, 2, 6):
+            cases = [(W, None, n_blocks) for W in (1, 2, 6)
+                     for n_blocks in (None, B)]
+            cases += [(2, s, B) for s in SLOT_COUNT_CASES]
+            for W, s, n_blocks in cases:
                 args = fold_inputs(*fold_case(W + B, kind, B=B, qc=qc),
                                    device)
                 t, codes_tiled, toff, counts, max_tiles = args
-                kw = dict(fold_tiles=W, max_tiles=max_tiles)
+                kw = dict(fold_tiles=W, max_tiles=max_tiles,
+                          n_blocks=n_blocks)
+                if s is not None or n_blocks is not None:
+                    kw["slot_counts"] = slot_counts_for(s, counts, qc)
                 got = scan_fold_csr(t, codes_tiled, toff, counts, **kw)
                 want = scan_fold_csr_reference(t, codes_tiled, toff, counts,
                                                **kw)
@@ -320,8 +363,9 @@ def check_kernel_small(device) -> float:
                 e = compare_fold(got, want, kind != "int8", kind != "bf16",
                                  t.shape[2] // 16, max_tiles)
                 err = max(err, e)
-                print(f"  K1 B={B} qc={qc} {kind:8s} W={W}: ok "
-                      f"(max value error {e})")
+                print(f"  K1 B={B} qc={qc} {kind:8s} W={W} slots {s} "
+                      f"n_blocks {n_blocks}: ok (max value error {e}, "
+                      f"bit-equal {bool((got == want).all())})")
     return err
 
 
@@ -354,14 +398,17 @@ def check_estimate_small(device) -> float:
     from tinyknn_tpu_torch.ops.kernels import (
         estimate_scan_tiled, estimate_scan_tiled_reference)
     err = 0.0
-    for n, B, Q in ((1000, 8, 20), (5000, 64, 45)):
+    # B = 232: code rows too wide for the int8 wgmma staging, which take
+    # the mma.sync path
+    for n, B, Q in ((1000, 8, 20), (700, 50, 23), (5000, 64, 45),
+                    (300, 232, 9)):
         for kind in ("int8", "bf16", "f32"):
             codes_tiled, t = estimate_inputs(
                 *estimate_case(n + B, kind, n=n, B=B, Q=Q), kind, device)
             got = estimate_scan_tiled(codes_tiled, t)
             want = estimate_scan_tiled_reference(codes_tiled, t)
             torch_sync()
-            e = compare_estimates(got, want, kind != "int8")
+            e = compare_estimates(got, want, kind != "int8", kind != "bf16")
             err = max(err, e)
             print(f"  K3 n={n} B={B} Q={Q} {kind:4s}: ok (max error {e}, "
                   f"bit-equal {torch.equal(got, want)})")
@@ -442,6 +489,103 @@ def recall_at_10(ids, truth) -> float:
                           for a, t in zip(ids, truth)]))
 
 
+def bound_ms(moved: float, ops: float, kind: str):
+    """The least time the card could take: the larger of ``moved`` bytes
+    over the memory rate and ``ops`` over the peak of ``kind``. Returns
+    (ms, "bytes" or "operations"), the side that binds."""
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[kind]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_bound(args, kw):
+    """K1's bound for one call, from what its inputs need: the table rows
+    of the occupied slots (real blocks), the real code bytes of every
+    tile of a list with an occupied slot, the three per-list int32
+    arrays, the fold written in full; the one-hot products (2 x 16
+    operations per real block) of every occupied (slot, point) pair at
+    the int8 or bf16 peak."""
+    import torch
+    tables, _, _, counts = args[:4]
+    C, qc, M = tables.shape
+    n_blocks = kw.get("n_blocks") or M // 16
+    sc = kw.get("slot_counts")
+    occ = (torch.full((C,), qc, device=tables.device) if sc is None
+           else sc.clamp(0, qc)).long()
+    pts = counts.long().clamp(max=kw["max_tiles"] * 128)
+    tiles = torch.where(occ > 0, (pts + 127) // 128, 0)
+    moved = (int(occ.sum()) * 16 * n_blocks * tables.element_size()
+             + int(tiles.sum()) * 128 * -(-n_blocks // 2) + 3 * C * 4
+             + C * qc * kw["fold_tiles"] * 128 * 4)
+    ops = 2 * 16 * n_blocks * int((occ * pts).sum())
+    return bound_ms(moved, ops,
+                    "int8" if tables.dtype == torch.int8 else "bf16")
+
+
+def k2_bound(args, kw):
+    """K2's bound for one call: the augmented queries, the vector tiles
+    of every list, the two per-list arrays, the fold written in full;
+    2 x d_aug operations per (slot, point) at the bf16 peak."""
+    q_sel, _, _, counts = args[:4]
+    C, qc, d_aug = q_sel.shape
+    pts = counts.long().clamp(max=kw["max_tiles"] * 128)
+    tiles = int(((pts + 127) // 128).sum())
+    moved = (q_sel.numel() * 2 + tiles * d_aug * 128 * 2 + 2 * C * 4
+             + C * qc * kw["fold_tiles"] * 128 * 4)
+    return bound_ms(moved, 2 * d_aug * qc * int(pts.sum()), "bf16")
+
+
+def k3_bound(codes_tiled, tables):
+    """K3's bound for one call: the tables, the real code bytes of every
+    tile, the (Q, T * 128) output; the one-hot products (2 x 16 per
+    block) at the int8 or bf16 peak, or one f32 add per block."""
+    import torch
+    T, _, _ = codes_tiled.shape
+    Q, B, _ = tables.shape
+    N = T * 128
+    moved = tables.numel() * tables.element_size() + N * -(-B // 2) + Q * N * 4
+    if tables.dtype == torch.float32:
+        return bound_ms(moved, Q * N * B, "f32")
+    return bound_ms(moved, 2 * 16 * B * Q * N,
+                    "int8" if tables.dtype == torch.int8 else "bf16")
+
+
+def k3_library(codes_tiled, tables, got, n: int):
+    """K3's yardstick: one PyTorch call computing its function,
+    ``torch._int_mm`` of the int8 tables [Q, 16B] with the int8 one-hot
+    [16B, N] of the same codes (built outside the timed window); where
+    ``_int_mm`` refuses the shape, a bf16 ``torch.matmul`` of the same
+    operands. The port never calls it. Returns (ms, the call, whether it
+    equals K3's output ``got``)."""
+    import torch
+    from tinyknn_tpu_torch.ops.packing import unpack_codes
+    T, Bs_pad, _ = codes_tiled.shape
+    Q, B, _ = tables.shape
+    N = T * 128
+    dev = tables.device
+    codes = unpack_codes(codes_tiled.permute(0, 2, 1).reshape(N, Bs_pad))
+    onehot = torch.zeros((N, 16 * B), dtype=torch.int8, device=dev)
+    onehot.scatter_(1, codes[:, :B].long() + 16 * torch.arange(B, device=dev),
+                    1)
+    del codes
+    a = tables.reshape(Q, 16 * B)
+    call = "torch._int_mm(int8 tables [Q, 16B], int8 one-hot [16B, N])"
+    fn = lambda: torch._int_mm(a, onehot.t())  # noqa: E731
+    try:
+        out = fn()
+    except RuntimeError as e:
+        print(f"  torch._int_mm refused the shape ({e}); timing a bf16 "
+              f"torch.matmul of the same operands instead")
+        a16, b16 = a.to(torch.bfloat16), onehot.t().to(torch.bfloat16)
+        call = "torch.matmul(bf16 tables [Q, 16B], bf16 one-hot [16B, N])"
+        fn = lambda: torch.matmul(a16, b16)  # noqa: E731
+        out = fn()
+    same = torch.equal(out.to(got.dtype), got)
+    del out
+    return event_ms(fn, n), call, same
+
+
 def kernel_table():
     """(name, wrapper, plain version, source, TPU kernel) of every
     kernel, K1 to K3."""
@@ -509,13 +653,16 @@ def capture_first(module, name: str, store: dict, key=by_dtype):
 
 
 def pq_path(ivf, data, queries, truth, card):
-    """Phase 4: the IVF query over 4-bit PQ codes through K1."""
+    """Phase 4: the IVF query over 4-bit PQ codes through K1. Every K1
+    shape the path gives (round 0 and the retry at 128 slots, per table
+    type and fold width) is held against the plain version with the
+    batch's own slot counts, timed, and given its bound."""
     import torch
     import tinyknn_tpu_torch.models.ivf as ivf_module
     from tinyknn_tpu_torch.ops.kernels import (
         scan_fold_csr, scan_fold_csr_reference)
-    captured = {}                       # first K1 call of each table type
-    undo = capture_first(ivf_module, "scan_fold_csr", captured)
+    captured = {}                       # first K1 call of each shape
+    undo = capture_first(ivf_module, "scan_fold_csr", captured, by_shape)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     _, t_fit = timed(lambda: ivf.fit(data))
@@ -530,8 +677,14 @@ def pq_path(ivf, data, queries, truth, card):
         ivf.pq.table_dtype = table_dtype
         run = lambda: ivf.query(queries, k=10, n_probes=1, pass_1=p1,  # noqa
                                 mode="bucket", with_stats=True)
+        n0 = scan_fold_csr.launches     # the kernel module's own count
         (ids, stats), t_cold = timed(run)
+        n1 = scan_fold_csr.launches
         (ids, stats), t_warm = timed(run)
+        per_batch = (n1 - n0, scan_fold_csr.launches - n1)
+        if per_batch[0] != per_batch[1] or not per_batch[0]:
+            raise AssertionError(f"K1 launches per batch {per_batch} at "
+                                 f"{table_dtype} p1={p1}")
         if ids.shape != (GLOVE["n_queries"], 10):
             raise AssertionError(f"query returned shape {tuple(ids.shape)}")
         rec = recall_at_10(ids, truth)
@@ -539,12 +692,14 @@ def pq_path(ivf, data, queries, truth, card):
               f"{t_warm:.4f} s warm ({GLOVE['n_queries'] / t_warm:.0f} "
               f"QPS), {t_cold:.4f} s first {card}; dropped pairs "
               f"{stats['dropped_probe_pairs']}, qc0 "
-              f"{stats['queries_per_cluster_cap_round0']}")
+              f"{stats['queries_per_cluster_cap_round0']}; K1 launches per "
+              f"batch {per_batch[1]}")
         if gate is not None and rec < gate:
             raise AssertionError(f"recall {rec:.4f} < {gate} at "
                                  f"{table_dtype} p1={p1}")
         results.append(dict(table_dtype=table_dtype, pass_1=p1, recall=rec,
-                            query_s=t_warm, first_query_s=t_cold))
+                            query_s=t_warm, first_query_s=t_cold,
+                            k1_launches_per_batch=per_batch[1]))
         stage_profile(f"PQ path {table_dtype} p1={p1}", run, card)
     launches = read_counts("PQ path")["scan_fold_csr"]
     undo()
@@ -553,9 +708,10 @@ def pq_path(ivf, data, queries, truth, card):
     if launches == 0:
         raise AssertionError("the PQ path did not run on K1")
 
-    print("K1 check, PQ path round-0 inputs:")
-    err, round0 = 0.0, {}
-    for dtype, (args, kw) in captured.items():
+    print("K1 check, PQ path inputs (each shape's first call):")
+    err, calls = 0.0, {}
+    for key, (args, kw) in captured.items():
+        dtype = key[0]
         got = scan_fold_csr(*args, **kw)
         want = scan_fold_csr_reference(*args, **kw)
         torch_sync()
@@ -563,19 +719,27 @@ def pq_path(ivf, data, queries, truth, card):
         t = args[0]
         e = compare_fold(got, want, bf16, not bf16, t.shape[2] // 16,
                          kw["max_tiles"])
+        same = bool(torch.equal(got, want))
+        del got, want
         err = max(err, e)
-        print(f"  {dtype} tables {tuple(t.shape)}, fold_tiles "
-              f"{kw['fold_tiles']}: ok (max value error {e})")
+        sc = kw.get("slot_counts")
+        occupied = "all" if sc is None else int(sc.clamp(max=t.shape[1]).sum())
+        b_ms, b_by = k1_bound(args, kw)
         k_ms, p_ms, four = in_turns(lambda: scan_fold_csr(*args, **kw),
                                     lambda: scan_fold_csr_reference(*args,
                                                                     **kw),
                                     KERNEL_TIMED_LAUNCHES)
-        round0[dtype] = (k_ms, p_ms)
-        print(f"  {dtype} times: kernel {four[0]:.4f} / {four[1]:.4f} ms, "
-              f"plain {four[2]:.4f} / {four[3]:.4f} ms per call {card}")
+        calls[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, bit_equal=same)
+        print(f"  {dtype} tables {tuple(t.shape)}, fold_tiles "
+              f"{kw['fold_tiles']}, n_blocks {kw.get('n_blocks')}, "
+              f"occupied slots {occupied}: ok (max value error {e}, "
+              f"bit-equal {same}); kernel {four[0]:.4f} / {four[1]:.4f} ms, "
+              f"plain {four[2]:.4f} / {four[3]:.4f} ms per call, bound "
+              f"{b_ms:.4f} ms ({b_by}) {card}")
     summary = {"fit_s": t_fit, "build_s": t_build, "queries": results,
                "peak_gib": peak_gb}
-    return summary, launches, err, round0
+    return summary, launches, err, calls
 
 
 def best_of(fn, reps: int = 3) -> float:
@@ -1048,13 +1212,15 @@ def exact_path(ivf, data, queries, truth, card):
                                 lambda: scan_exact_csr_reference(*args,
                                                                  **kw),
                                 KERNEL_TIMED_LAUNCHES)
+    b_ms, b_by = k2_bound(args, kw)
     print(f"  times: kernel {four[0]:.4f} / {four[1]:.4f} ms, plain "
-          f"{four[2]:.4f} / {four[3]:.4f} ms per call {card}")
+          f"{four[2]:.4f} / {four[3]:.4f} ms per call, bound {b_ms:.4f} ms "
+          f"({b_by}) {card}")
     err = max(err, e_stream)
     summary = {"set_scan_impl_s": t_switch, "build_bp2_s": t_build,
                "queries": [bp1] + bp2, "peak_gib": peak_gb,
                "serving": serving}
-    return summary, launches, err, (k_ms, p_ms), serving_launches
+    return summary, launches, err, (k_ms, p_ms, b_ms, b_by), serving_launches
 
 
 def true_nn_ranks(est, truth):
@@ -1192,9 +1358,13 @@ def full_scan_path(device, card):
     k3 = in_turns(lambda: estimate_scan_tiled(*args, **kw),
                   lambda: estimate_scan_tiled_reference(*args, **kw),
                   KERNEL_TIMED_LAUNCHES)
+    b3 = k3_bound(*args)
+    lib3 = k3_library(*args, got, KERNEL_TIMED_LAUNCHES)
     print(f"  K3 codes {tuple(args[0].shape)}, tables {tuple(args[1].shape)}"
           f": bit-equal; kernel {k3[2][0]:.4f} / {k3[2][1]:.4f} ms, plain "
-          f"{k3[2][2]:.4f} / {k3[2][3]:.4f} ms per call {card}")
+          f"{k3[2][2]:.4f} / {k3[2][3]:.4f} ms per call, bound {b3[0]:.4f} "
+          f"ms ({b3[1]}); {lib3[1]} {lib3[0]:.4f} ms (equal to K3's output "
+          f"{lib3[2]}) {card}")
     (args, kw), = k1_calls.values()
     got = scan_fold_csr(*args, **kw)
     e1 = compare_fold(got, scan_fold_csr_reference(*args, **kw), False, True,
@@ -1202,10 +1372,12 @@ def full_scan_path(device, card):
     k1 = in_turns(lambda: scan_fold_csr(*args, **kw),
                   lambda: scan_fold_csr_reference(*args, **kw),
                   KERNEL_TIMED_LAUNCHES)
+    b1 = k1_bound(args, kw)
     print(f"  K1 tables {tuple(args[0].shape)}, fold_tiles "
-          f"{kw['fold_tiles']}, max_tiles {kw['max_tiles']}: bit-equal; "
-          f"kernel {k1[2][0]:.4f} / {k1[2][1]:.4f} ms, plain "
-          f"{k1[2][2]:.4f} / {k1[2][3]:.4f} ms per call {card}")
+          f"{kw['fold_tiles']}, max_tiles {kw['max_tiles']}, n_blocks "
+          f"{kw.get('n_blocks')}: bit-equal; kernel {k1[2][0]:.4f} / "
+          f"{k1[2][1]:.4f} ms, plain {k1[2][2]:.4f} / {k1[2][3]:.4f} ms per "
+          f"call, bound {b1[0]:.4f} ms ({b1[1]}) {card}")
     del got
     wrappers = time_wrappers(data.packed, pq.distance_table(qd).tables,
                              data.size, 30, 20, PLAIN_TIMED_LAUNCHES, card)
@@ -1213,7 +1385,7 @@ def full_scan_path(device, card):
                "search_ms": t_search * 1e3, "approx_recall1_at_10": rec_a,
                "approx_search_ms": t_a * 1e3, "wrappers_ms": wrappers}
     return (summary, launches["estimate_scan_tiled"], approx["scan_fold_csr"],
-            (e1, k1[:2]), (e3, k3[:2]))
+            (e1, k1[:2] + b1), (e3, k3[:2] + b3 + lib3[:1]))
 
 
 def k3_real_size(ivf, queries, truth, card):
@@ -1239,16 +1411,22 @@ def k3_real_size(ivf, queries, truth, card):
           f"(max error {err})")
     if not same:
         raise AssertionError("K3 disagrees with its plain version")
-    del got, want
+    del want
+    lib_ms, lib_call, lib_same = k3_library(codes_tiled, tables, got,
+                                            K3_TIMED_LAUNCHES)
+    del got
     k_ms, p_ms, four = in_turns(
         lambda: estimate_scan_tiled(codes_tiled, tables),
         lambda: estimate_scan_tiled_reference(codes_tiled, tables),
         K3_TIMED_LAUNCHES)
-    T, Bs_pad, _ = codes_tiled.shape
-    lookups = K3_QUERIES * T * 128 * 2 * Bs_pad
+    b_ms, b_by = k3_bound(codes_tiled, tables)
+    T = codes_tiled.shape[0]
+    ops = 2 * 16 * tables.shape[1] * K3_QUERIES * T * 128
     print(f"  times: kernel {four[0]:.3f} / {four[1]:.3f} ms, plain "
-          f"{four[2]:.3f} / {four[3]:.3f} ms per call {card}; "
-          f"{lookups / (k_ms * 1e-3):.3e} lookups/s")
+          f"{four[2]:.3f} / {four[3]:.3f} ms per call, bound {b_ms:.3f} ms "
+          f"({b_by}) {card}; {ops / (k_ms * 1e-3):.3e} one-hot ops/s; "
+          f"library {lib_call}: {lib_ms:.3f} ms (equal to K3's output "
+          f"{lib_same})")
     wrappers = time_wrappers(codes.packed, tables, codes.size, 30,
                              K3_TIMED_LAUNCHES, 1, card)
     run = lambda: ivf.pq.search(qn, codes, ivf.data, k=10)  # noqa: E731
@@ -1269,11 +1447,27 @@ def k3_real_size(ivf, queries, truth, card):
     rec_a = recall_at_10(ids_a, truth[:K3_QUERIES])
     print(f"  the same with method='approx': {t_a * 1e3:.3f} ms warm "
           f"{card}; recall10@10 {rec_a:.4f}")
-    return err, (k_ms, p_ms), {"search_ms": t_search * 1e3,
-                               "recall10_at_10": rec, "pass1_sort_ms": sort_ms,
-                               "approx_search_ms": t_a * 1e3,
-                               "approx_recall10_at_10": rec_a,
-                               "wrappers_ms": wrappers}
+    return err, (k_ms, p_ms, b_ms, b_by, lib_ms, lib_call), {
+        "search_ms": t_search * 1e3, "recall10_at_10": rec,
+        "pass1_sort_ms": sort_ms, "approx_search_ms": t_a * 1e3,
+        "approx_recall10_at_10": rec_a, "wrappers_ms": wrappers}
+
+
+def k1_main_calls(calls: dict):
+    """The K1 readings of the kernels line, from phase 4's timed shapes:
+    int8 round 0 (32 slots), the int8 retry (128 slots) and bf16 round
+    0, each the first of its kind."""
+    import torch
+
+    def first(dtype, qc=None):
+        for (dt, shape, _), row in calls.items():
+            if dt == dtype and qc in (None, shape[1]):
+                return row
+        raise AssertionError(f"no {dtype} K1 call with {qc} slots was "
+                             f"timed")
+
+    return (first(torch.int8, 32), first(torch.int8, 128),
+            first(torch.bfloat16))
 
 
 def main() -> int:
@@ -1324,8 +1518,8 @@ def main() -> int:
     truth = np.load(TRUTH)
     ivf = IVF("angular", GLOVE["n_clusters"], FastPQ(2, device=device),
               device=device)
-    pq_sum, k1_launches, e1, round0 = pq_path(ivf, data, queries, truth,
-                                              card)
+    pq_sum, k1_launches, e1, k1_calls = pq_path(ivf, data, queries, truth,
+                                                card)
     err["scan_fold_csr"] = max(err["scan_fold_csr"], e1)
 
     # -- 4b. serving surface on the same index (K1; gather, 'xla', Flat
@@ -1350,27 +1544,40 @@ def main() -> int:
     err["estimate_scan_tiled"] = max(err["estimate_scan_tiled"], e3)
     del ivf
 
-    k1_ms, p1_ms = round0[torch.int8]
-    kb_ms, pb_ms = round0.get(torch.bfloat16, (None, None))
+    r0, retry, bf = k1_main_calls(k1_calls)
     print(json.dumps({"pq_path": pq_sum, "serving_path": serving_sum,
                       "exact_path": exact_sum,
                       "full_scan": fs_sum, "k3_real_size": k3_sum,
                       "card": smi}))
     print(smi)
     rows = {
-        "scan_fold_csr": dict(launches=k1_launches, ms=k1_ms, plain_ms=p1_ms,
-                              bf16_ms=kb_ms, bf16_plain_ms=pb_ms,
-                              approx_route_launches=k1_approx_launches,
-                              approx_route_ms=k1_fs_times[0],
-                              approx_route_plain_ms=k1_fs_times[1],
-                              serving_launches=k1_serving),
-        "scan_exact_csr": dict(launches=k2_launches, ms=k2_times[0],
-                               plain_ms=k2_times[1],
-                               serving_launches=k2_serving),
-        "estimate_scan_tiled": dict(launches=k3_launches, ms=k3_times[0],
-                                    plain_ms=k3_times[1],
-                                    full_scan_ms=k3_fs_times[0],
-                                    full_scan_plain_ms=k3_fs_times[1]),
+        "scan_fold_csr": dict(
+            launches=k1_launches, **r0, library_ms=None,
+            library_reason=NO_LIBRARY["scan_fold_csr"],
+            shape="int8 (1087, 32, 1024) round 0 of int8 p1=84, the "
+                  "batch's slot counts",
+            retry_ms=retry["ms"], retry_plain_ms=retry["plain_ms"],
+            retry_bound_ms=retry["bound_ms"],
+            bf16_ms=bf["ms"], bf16_plain_ms=bf["plain_ms"],
+            bf16_bound_ms=bf["bound_ms"],
+            approx_route_launches=k1_approx_launches,
+            approx_route_ms=k1_fs_times[0],
+            approx_route_plain_ms=k1_fs_times[1],
+            approx_route_bound_ms=k1_fs_times[2],
+            serving_launches=k1_serving),
+        "scan_exact_csr": dict(
+            launches=k2_launches, ms=k2_times[0], plain_ms=k2_times[1],
+            bound_ms=k2_times[2], bound_by=k2_times[3], library_ms=None,
+            library_reason=NO_LIBRARY["scan_exact_csr"],
+            serving_launches=k2_serving),
+        "estimate_scan_tiled": dict(
+            launches=k3_launches, ms=k3_times[0], plain_ms=k3_times[1],
+            bound_ms=k3_times[2], bound_by=k3_times[3],
+            library_ms=k3_times[4], library_call=k3_times[5],
+            shape="int8, 1,000 queries x 1,183,616 GloVe codes",
+            full_scan_ms=k3_fs_times[0], full_scan_plain_ms=k3_fs_times[1],
+            full_scan_bound_ms=k3_fs_times[2],
+            full_scan_library_ms=k3_fs_times[4]),
     }
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",

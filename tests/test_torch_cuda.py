@@ -7,13 +7,17 @@ Needs a CUDA device and nvcc; skipped elsewhere. On the card:
 (``--noconftest``: tests/conftest.py sets up JAX, which the card
 machine need not have.)
 
-K1 ``scan_fold_csr``: int8 tables and bf16 tables with integer values
-must give bit-equal fold buffers; random bf16 tables agree within 1
-bf16 ulp (the kernel and the plain version sum in the same order, so in
-practice they are bit-equal too). K2 ``scan_exact_csr``: bit-equal on
-integer-valued inputs, within 1 bf16 ulp (positions equal where the
-values are) on random ones. K3 ``estimate_scan_tiled``: bit-equal for
-int8 tables, rtol 1e-6 for bf16 and f32 tables.
+K1 ``scan_fold_csr`` (one-hot tensor-core products): int8 tables and
+bf16 tables with integer values must give bit-equal fold buffers;
+random bf16 tables agree within 1 bf16 ulp (the kernel adds each
+product in f32 in the plain version's order, so they are designed
+bit-equal too); also with the real block count below the padded one
+and at 0, 1, 7, 8, 9 and all occupied slots. K2 ``scan_exact_csr``:
+bit-equal on integer-valued inputs, within 1 bf16 ulp (positions equal
+where the values are) on random ones. K3 ``estimate_scan_tiled``:
+bit-equal for int8 and f32 tables, rtol 1e-6 for bf16 tables, at query
+counts that are not a multiple of 16, and with 232 blocks, too wide for
+the int8 wgmma staging.
 
 The serving surface on the card: the stream and ``rescore_rows`` give
 ``query()``'s ids through K1/K2; gather mode and the 'xla' engine run
@@ -25,6 +29,7 @@ import pytest
 import torch
 
 from chip_smoke import (
+    SLOT_COUNT_CASES,
     compare_estimates,
     compare_fold,
     estimate_case,
@@ -33,6 +38,7 @@ from chip_smoke import (
     exact_inputs,
     fold_case,
     fold_inputs,
+    slot_counts_for,
 )
 from tinyknn_tpu_torch.ops.kernels import (
     estimate_scan_tiled,
@@ -69,6 +75,23 @@ def test_kernel_matches_plain(cuda, W, kind, B, qc):
                  t.shape[2] // 16, max_tiles)
 
 
+@pytest.mark.parametrize("B, qc", [(8, 20), (56, 40)])
+@pytest.mark.parametrize("kind", ["int8", "bf16_int", "bf16"])
+@pytest.mark.parametrize("s", SLOT_COUNT_CASES)
+def test_kernel_slot_counts_match_plain(cuda, s, kind, B, qc):
+    t, codes_tiled, toff, counts, max_tiles = fold_inputs(
+        *fold_case(3 + B, kind, B=B, qc=qc), cuda)
+    kw = dict(fold_tiles=2, max_tiles=max_tiles, n_blocks=B,
+              slot_counts=slot_counts_for(s, counts, qc))
+    launches = scan_fold_csr.launches
+    got = scan_fold_csr(t, codes_tiled, toff, counts, **kw)
+    want = scan_fold_csr_reference(t, codes_tiled, toff, counts, **kw)
+    torch.cuda.synchronize()
+    assert scan_fold_csr.launches == launches + 1
+    compare_fold(got, want, kind != "int8", kind != "bf16",
+                 t.shape[2] // 16, max_tiles)
+
+
 def test_kernel_rejects_bad_input(cuda):
     t, codes_tiled, toff, counts, max_tiles = fold_inputs(
         *fold_case(0, "int8"), cuda)
@@ -78,6 +101,11 @@ def test_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         scan_fold_csr(t, codes_tiled, toff.cpu(), counts, fold_tiles=1,
                       max_tiles=max_tiles)
+    # the kernel stages code rows padded to a multiple of 8 bytes
+    with pytest.raises(RuntimeError, match="launch failed"):
+        scan_fold_csr(t[:, :, :-128].contiguous(),
+                      codes_tiled[:, :-4].contiguous(), toff, counts,
+                      fold_tiles=1, max_tiles=max_tiles)
 
 
 @pytest.mark.parametrize("d, qc", [(12, 20), (100, 40), (30, 8)])
@@ -110,7 +138,8 @@ def test_exact_kernel_rejects_bad_input(cuda):
 
 
 @pytest.mark.parametrize("n, B, Q", [(1000, 8, 20), (300, 56, 9),
-                                     (5000, 64, 45)])
+                                     (700, 50, 23), (5000, 64, 45),
+                                     (300, 232, 9)])
 @pytest.mark.parametrize("kind", ["int8", "bf16", "f32"])
 def test_estimate_kernel_matches_plain(cuda, kind, n, B, Q):
     codes_tiled, t = estimate_inputs(*estimate_case(n + B, kind, n=n, B=B,
@@ -120,7 +149,7 @@ def test_estimate_kernel_matches_plain(cuda, kind, n, B, Q):
     want = estimate_scan_tiled_reference(codes_tiled, t)
     torch.cuda.synchronize()
     assert estimate_scan_tiled.launches == launches + 1
-    compare_estimates(got, want, kind != "int8")
+    compare_estimates(got, want, kind != "int8", kind != "bf16")
 
 
 def test_estimate_kernel_rejects_bad_input(cuda):

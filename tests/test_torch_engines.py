@@ -42,7 +42,7 @@ def test_pass1_approx_equals_exact(tmp_path):
     """'approx' selects exactly on the card and here: the ids equal
     'exact''s; a JAX archive saved with 'approx' loads and serves."""
     X, qs = make_clustered(1200, 16, 80, seed=16)
-    kw = dict(metric="euclidean", n_clusters=16)
+    kw = dict(metric="euclidean", n_clusters=16, device="cpu")
     a = IVF(**kw, pass1_method="exact").fit(X).build(X, n_probes=2)
     b = IVF(**kw, pass1_method="approx").fit(X).build(X, n_probes=2)
     for P in (1, 4):

@@ -176,7 +176,8 @@ def test_port_serves_jax_exact_index(tmp_path, metric, bp, n, d, C):
 
 def test_set_scan_impl_switches_engines():
     X, qs = make_clustered(800, 16, 20, seed=6)
-    ivf = IVF("euclidean", 8, FastPQ(2)).fit(X).build(X, n_probes=1)
+    ivf = IVF("euclidean", 8, FastPQ(2, device="cpu"),
+              device="cpu").fit(X).build(X, n_probes=1)
     assert ivf.csr_vecs is None
     pq_ids = ivf.query(qs, 5, mode="bucket")
     ivf.set_scan_impl("exact")
@@ -204,7 +205,8 @@ def test_set_scan_impl_switches_engines():
 
 def test_exact_list_too_long_raises():
     X, _ = make_clustered(300, 16, 4, seed=1)
-    ivf = IVF("euclidean", 4, FastPQ(2)).fit(X).build(X, n_probes=1)
+    ivf = IVF("euclidean", 4, FastPQ(2, device="cpu"),
+              device="cpu").fit(X).build(X, n_probes=1)
     ivf.max_tiles = 513           # as if one list held 65,537+ points
     with pytest.raises(ValueError, match="16-bit"):
         ivf.set_scan_impl("exact")

@@ -29,7 +29,8 @@ def test_fit_recall_close_to_jax(metric, build_probes, table_dtype):
     jax_ivf = JaxIVF(metric, 40, JaxFastPQ(2, table_dtype=table_dtype),
                      scan_impl="fused", pass1_method="exact")
     jax_ivf.fit(X).build(X, n_probes=build_probes)
-    port = IVF(metric, 40, FastPQ(2, table_dtype=table_dtype))
+    port = IVF(metric, 40, FastPQ(2, table_dtype=table_dtype, device="cpu"),
+               device="cpu")
     port.fit(X).build(X, n_probes=build_probes)
     assert port.build_probes == build_probes
     assert int(port.list_counts.sum()) == build_probes * len(X)
@@ -41,8 +42,10 @@ def test_fit_recall_close_to_jax(metric, build_probes, table_dtype):
 
 def test_fit_is_seeded():
     X, qs = make_clustered(1000, 16, 10, seed=3)
-    a = IVF("euclidean", 10, FastPQ(2, seed=4), seed=1).fit(X)
-    b = IVF("euclidean", 10, FastPQ(2, seed=4), seed=1).fit(X)
+    a = IVF("euclidean", 10, FastPQ(2, seed=4, device="cpu"), seed=1,
+            device="cpu").fit(X)
+    b = IVF("euclidean", 10, FastPQ(2, seed=4, device="cpu"), seed=1,
+            device="cpu").fit(X)
     assert torch.equal(a.all_centers, b.all_centers)
     assert torch.equal(a.pq.center_blocks, b.pq.center_blocks)
 
@@ -71,7 +74,7 @@ def test_blockwise_kmeans_shapes_and_quality():
 
 def test_transform_round_trip():
     X, _ = make_clustered(500, 20, 5, seed=9)
-    pq = FastPQ(2, rotate_dim=None)
+    pq = FastPQ(2, rotate_dim=None, device="cpu")
     data = pq.fit_transform(X)
     assert data.size == 500
     assert data.packed.dtype == torch.uint8

@@ -58,7 +58,7 @@ def test_flat_matches_jax(metric):
     X = rng.standard_normal((700, 12)).astype(np.float32)
     qs = rng.standard_normal((25, 12)).astype(np.float32)
     a = np.asarray(JaxFlat(metric).fit(X).build(X).query(qs, k=10))
-    port = Flat(metric).fit(X).build(X)
+    port = Flat(metric, device="cpu").fit(X).build(X)
     b = port.query(qs, k=10)
     assert b.dtype == torch.int64 and tuple(b.shape) == (25, 10)
     data = port.data.numpy()
@@ -68,16 +68,16 @@ def test_flat_matches_jax(metric):
     _same_distances(data, np.asarray(JaxFlat(metric).build(X).query(
         qs[4], k=6)), one.numpy(), qs[4], metric)
     # k is capped at the corpus size, every row comes back once
-    small = Flat(metric).build(X[:7])
+    small = Flat(metric, device="cpu").build(X[:7])
     assert tuple(small.query(qs, k=10).shape) == (25, 7)
     assert sorted(small.query(qs[0], k=10).tolist()) == list(range(7))
 
 
 def test_flat_needs_build_and_known_metric():
     with pytest.raises(RuntimeError, match="build"):
-        Flat().query(np.zeros(4, np.float32), k=1)
+        Flat(device="cpu").query(np.zeros(4, np.float32), k=1)
     with pytest.raises(ValueError, match="metric"):
-        Flat("cosine")
+        Flat("cosine", device="cpu")
 
 
 # -------------------------------------------------------------- archives
@@ -94,10 +94,10 @@ def _port_index(metric, bp, table_dtype, labels, scan_impl="fused",
                 rescore_rows=False, n=1200, d=16, C=12):
     X, qs = make_clustered(n, d, 30, seed=8)
     lab = (np.arange(n, dtype=np.int64) * 5 + 1) << 34 if labels else None
-    ivf = IVF(metric, C, FastPQ(2, table_dtype=table_dtype),
+    ivf = IVF(metric, C, FastPQ(2, table_dtype=table_dtype, device="cpu"),
               scan_impl=scan_impl, pass1_method="exact",
               rescore_rows=rescore_rows, fold_mult=6,
-              scan_budget_bytes=1 << 29)
+              scan_budget_bytes=1 << 29, device="cpu")
     ivf.fit(X).build(X, n_probes=bp, labels=lab)
     return ivf, qs
 
@@ -158,9 +158,9 @@ def test_port_round_trip(tmp_path, cfg, compress):
 
 def test_save_unbuilt_raises(tmp_path):
     with pytest.raises(RuntimeError, match="not built"):
-        save_ivf(tmp_path / "x.npz", IVF("euclidean", 4))
+        save_ivf(tmp_path / "x.npz", IVF("euclidean", 4, device="cpu"))
     with pytest.raises(RuntimeError, match="not fitted"):
-        save_pq(tmp_path / "x.npz", FastPQ(2))
+        save_pq(tmp_path / "x.npz", FastPQ(2, device="cpu"))
 
 
 @pytest.mark.parametrize("rotate_dim, use_kmeans",
@@ -172,7 +172,7 @@ def test_pq_archive_both_ways(tmp_path, rotate_dim, use_kmeans):
     X = rng.standard_normal((300, 16)).astype(np.float32)
     qs = rng.standard_normal((6, 16)).astype(np.float32)
     pq = FastPQ(2, rotate_dim=rotate_dim, use_kmeans=use_kmeans,
-                kmeans_iters=9, table_dtype="bf16")
+                kmeans_iters=9, table_dtype="bf16", device="cpu")
     data = pq.fit_transform(X)
     save_pq(tmp_path / "pq.npz", pq)
     back = load_pq(tmp_path / "pq.npz", "cpu")
@@ -361,7 +361,7 @@ def test_streaming_merge_matches_jax():
     rng = np.random.default_rng(5)
     k, chunks = 7, [_tied(rng, (4, 9), high=20) for _ in range(5)]
     jv, ji = jax_topk.streaming_topk_init((4,), k)
-    pv, pi = topk.streaming_topk_init((4,), k)
+    pv, pi = topk.streaming_topk_init((4,), k, device="cpu")
     assert pv.dtype == torch.float32 and pi.dtype == torch.int32
     np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
@@ -453,7 +453,8 @@ def test_fixed_gaussian_code_matches_jax(rotate_dim):
     X = (rng.standard_normal((400, 16)) * rng.random(16) * 3).astype(
         np.float32)
     want = JaxFastPQ(2, use_kmeans=False, rotate_dim=rotate_dim).fit(X)
-    got = FastPQ(2, use_kmeans=False, rotate_dim=rotate_dim).fit(X)
+    got = FastPQ(2, use_kmeans=False, rotate_dim=rotate_dim,
+                 device="cpu").fit(X)
     assert tuple(got.center_blocks.shape) == (8, 16, 2)
     if rotate_dim is None:
         np.testing.assert_array_equal(got.center_blocks.numpy(),
@@ -473,4 +474,4 @@ def test_fixed_gaussian_code_matches_jax(rotate_dim):
 def test_fixed_gaussian_code_needs_two_dims_per_block():
     X = np.random.default_rng(0).standard_normal((64, 16)).astype(np.float32)
     with pytest.raises(ValueError, match="dims_per_block=2"):
-        FastPQ(4, use_kmeans=False, rotate_dim=None).fit(X)
+        FastPQ(4, use_kmeans=False, rotate_dim=None, device="cpu").fit(X)

@@ -127,8 +127,10 @@ def test_unported_options_raise(kw, call):
     rescore_rows with the same ids, and gather mode never worse than
     bucket mode (its pool is a superset of bucket's pass-1 cut)."""
     X, qs = make_clustered(300, 16, 4, seed=1)
-    base = IVF("euclidean", 4, FastPQ(2)).fit(X).build(X, n_probes=2)
-    ivf = IVF("euclidean", 4, FastPQ(2), **kw).fit(X).build(X, n_probes=2)
+    base = IVF("euclidean", 4, FastPQ(2, device="cpu"),
+               device="cpu").fit(X).build(X, n_probes=2)
+    ivf = IVF("euclidean", 4, FastPQ(2, device="cpu"), device="cpu",
+              **kw).fit(X).build(X, n_probes=2)
     want = base.query(qs, 5, n_probes=2, mode="bucket").numpy()
     got, stats = ivf.query(qs, 5, n_probes=2, mode=call or "bucket",
                            with_stats=True)
@@ -149,7 +151,8 @@ def test_list_too_long_raises():
     bucket scan to 'xla'; an explicit 'fused' raises the encoding's
     ValueError (no scan runs at this faked length)."""
     X, qs = make_clustered(300, 16, 4, seed=1)
-    ivf = IVF("euclidean", 4, FastPQ(2)).fit(X).build(X, n_probes=1)
+    ivf = IVF("euclidean", 4, FastPQ(2, device="cpu"),
+              device="cpu").fit(X).build(X, n_probes=1)
     assert ivf._scan_engine() == "fused"
     ivf.max_tiles = 1 << 14       # as if one list held 2,097,152 points
     assert ivf._scan_engine() == "xla"

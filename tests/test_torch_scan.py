@@ -83,7 +83,7 @@ def test_dispatcher_rejects_unknown_backend():
     # backend is FastPQ's stored setting, kept for the JAX archives and
     # checked there; the dispatcher routes by device and takes none
     with pytest.raises(ValueError):
-        FastPQ(backend="cuda")
+        FastPQ(backend="cuda", device="cpu")
     codes, tables = estimate_case(0, "int8", n=20)
     with pytest.raises(TypeError):
         estimate_scan(torch.as_tensor(codes), torch.as_tensor(tables),

@@ -98,8 +98,8 @@ def test_stream_device_out_and_labels():
     labels of the positional ids are the host path's answer."""
     X, qs = make_clustered(600, 16, 64, seed=22)
     labels = (np.arange(600, dtype=np.int64) * 7 + 3) << 33
-    ivf = IVF("angular", 10, FastPQ(2), scan_impl="exact",
-              rescore_rows=True)
+    ivf = IVF("angular", 10, FastPQ(2, device="cpu"), scan_impl="exact",
+              rescore_rows=True, device="cpu")
     ivf.fit(X).build(X, n_probes=2, labels=labels)
     stream = qs.reshape(2, 32, 16)
     host = ivf.query_stream(stream, k=6, n_probes=3)
@@ -149,7 +149,8 @@ def test_stream_drift_remeasures(monkeypatch):
     pre-pass runs, and the reported floors are the clamped ones."""
     X, _ = make_clustered(3000, 16, 8, seed=32)
     stream = _skewed_stream(X, np.random.default_rng(32), 1, 64)
-    ivf = IVF("euclidean", 24, FastPQ(2)).fit(X).build(X, n_probes=2)
+    ivf = IVF("euclidean", 24, FastPQ(2, device="cpu"),
+              device="cpu").fit(X).build(X, n_probes=2)
     ivf._stream_qc_floors = {(64, 3): (8, 8)}
     _, st1 = ivf.query_stream(stream, k=8, n_probes=3, with_stats=True)
     assert st1["dropped_probe_pairs"] > 0
@@ -161,8 +162,8 @@ def test_stream_drift_remeasures(monkeypatch):
     real = ivf_module._stream_peak_loads
     monkeypatch.setattr(ivf_module, "_stream_peak_loads",
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
-    tight = IVF("euclidean", 24, FastPQ(2),
-                scan_budget_bytes=24 * 16 * 4 * 128)
+    tight = IVF("euclidean", 24, FastPQ(2, device="cpu"),
+                scan_budget_bytes=24 * 16 * 4 * 128, device="cpu")
     tight.fit(X).build(X, n_probes=2)
     _, st = tight.query_stream(stream, k=8, n_probes=3, with_stats=True)
     assert st["dropped_probe_pairs"] > 0 and len(calls) == 1
@@ -225,7 +226,8 @@ def test_capacity_views_match_jax(tmp_path, helper, scan_impl):
 
 def test_stream_exact_guard():
     X, _ = make_clustered(400, 8, 4, seed=13)
-    ivf = IVF("euclidean", 8, FastPQ(2)).fit(X).build(X, n_probes=2)
+    ivf = IVF("euclidean", 8, FastPQ(2, device="cpu"),
+              device="cpu").fit(X).build(X, n_probes=2)
     ivf.scan_impl = "exact"  # bypassing set_scan_impl on purpose
     with pytest.raises(RuntimeError, match="set_scan_impl"):
         ivf.query_stream(np.zeros((1, 4, 8), np.float32), k=3)
@@ -246,8 +248,9 @@ def test_rescore_rows_same_ids(tmp_path, metric, scan_impl, bp):
     save/load round trip."""
     from tinyknn_tpu_torch import save_ivf as port_save
     X, qs = make_clustered(900, 12, 32, seed=48)
-    ivf = IVF(metric, 12, FastPQ(2, seed=5, rotate_dim=None), seed=2,
-              scan_impl=scan_impl).fit(X).build(X, n_probes=bp)
+    ivf = IVF(metric, 12,
+              FastPQ(2, seed=5, rotate_dim=None, device="cpu"), seed=2,
+              scan_impl=scan_impl, device="cpu").fit(X).build(X, n_probes=bp)
     want = ivf.query(qs, k=7, n_probes=4, mode="bucket")
     ivf.set_rescore_rows(True)
     assert ivf.csr_raw.shape == (ivf.csr_ids.shape[0], 12)
@@ -314,8 +317,10 @@ def test_auto_mode_threshold(tmp_path):
 def test_gather_labels():
     X, qs = make_clustered(900, 12, 25, seed=29)
     labels = 10**12 + 3 * np.arange(900, dtype=np.int64)
-    plain = IVF("euclidean", 24, FastPQ(2)).fit(X).build(X, n_probes=2)
-    tagged = IVF("euclidean", 24, FastPQ(2)).fit(X).build(
+    plain = IVF("euclidean", 24, FastPQ(2, device="cpu"),
+                device="cpu").fit(X).build(X, n_probes=2)
+    tagged = IVF("euclidean", 24, FastPQ(2, device="cpu"),
+                 device="cpu").fit(X).build(
         X, n_probes=2, labels=labels)
     for mode in ("bucket", "gather"):
         pos = plain.query(qs, k=7, n_probes=3, mode=mode).numpy()

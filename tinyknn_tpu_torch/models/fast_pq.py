@@ -57,11 +57,12 @@ def as_f32(x, device) -> torch.Tensor:
 
 
 class FastPQ:
-    """4-bit product quantizer, state on ``device``."""
+    """4-bit product quantizer, state on ``device`` (the card unless the
+    caller asks for the CPU)."""
 
     def __init__(self, dims_per_block=2, use_kmeans=True, rotate_dim=64,
                  seed=0, backend="auto", kmeans_iters=25, kmeans_n_init=2,
-                 table_dtype="int8", device="cpu"):
+                 table_dtype="int8", device="cuda"):
         """``backend``: the JAX package's scan backend, kept so its
         archives load; the port routes by device and ignores it."""
         if table_dtype not in ("int8", "bf16", "f32"):

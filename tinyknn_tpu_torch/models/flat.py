@@ -2,7 +2,8 @@
 
 Exact search with the IVF calling convention, on ``knn_brute``: the
 ground-truth generator of the benchmarks and a usable index at small
-scale. State lives on the device given at construction.
+scale. State lives on the device given at construction, the card
+unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from .fast_pq import as_f32
 class Flat:
     """Exact nearest-neighbour index with the IVF calling convention."""
 
-    def __init__(self, metric="euclidean", device="cpu"):
+    def __init__(self, metric="euclidean", device="cuda"):
         if metric not in ("euclidean", "angular"):
             raise ValueError(f"metric must be euclidean or angular, not "
                              f"{metric!r}")

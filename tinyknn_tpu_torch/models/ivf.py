@@ -80,7 +80,7 @@ class IVF:
                  kmeans_iters=30, queries_per_cluster=None,
                  pass1_method="auto", scan_impl="auto",
                  fold_mult=FOLD_MULT, rescore_rows=False,
-                 scan_budget_bytes=2 << 30, device="cpu"):
+                 scan_budget_bytes=2 << 30, device="cuda"):
         """``scan_impl``: 'fused' scans the PQ codes with the
         scan_fold_csr kernel; 'xla' scans them in plain torch (the JAX
         package's XLA engine: dense one-hot products, a top-r per pair);
@@ -90,8 +90,9 @@ class IVF:
         lists of at most 65,536 points). ``pass1_method``: 'auto',
         'exact' and 'approx' all select exactly: the card has no
         approx_max_k, and the JAX package selects exactly off the TPU
-        too. ``device``: where the index and every query's work live;
-        nothing picks it for you.
+        too. ``device``: where the index and every query's work live,
+        the card unless the caller asks for the CPU; a machine without
+        CUDA raises at the first allocation, with no fallback.
 
         ``rescore_rows``: keep a CSR-ordered fp32 copy of the vectors
         (T * 128 x d, one more copy of the data) so that the rescore
@@ -762,7 +763,8 @@ def _bucket_pairs(probe_sub, C: int, qc: int):
 
 def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
                        list_counts, qc: int, r: int, max_tiles: int,
-                       fold_mult: int, scan_impl: str = "fused"):
+                       fold_mult: int, scan_impl: str = "fused",
+                       n_blocks: int | None = None):
     """One bucketed scan round over a probe subset.
 
     probe_sub: (Q, Ps) list ids. Scans every list once for all its
@@ -774,7 +776,9 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
     dropped)``: each pair's encoded fold row and its list's first flat
     row. 'xla' returns ``(vals f32[Q, Ps, r], rows int64[Q, Ps, r],
     dropped)``: each pair's r smallest estimates (+inf = no candidate)
-    and their flat rows.
+    and their flat rows. 'fused' hands K1 each list's occupied slot
+    count, counted on the device, and ``n_blocks``, the real table
+    block count: it scans neither the empty slots nor the pad blocks.
     """
     C = tile_offsets.shape[0]
     qgrid, pair_idx, in_slot, dropped = _bucket_pairs(probe_sub, C, qc)
@@ -786,10 +790,16 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
         rows = rows.reshape(C * qc, r)[pair_idx]
         return (torch.where(in_slot[:, :, None], vals, float("inf")),
                 torch.where(in_slot[:, :, None], rows, 0), dropped)
-    scan = scan_exact_csr if scan_impl == "exact" else scan_fold_csr
-    enc = scan(t_sel, csr_codes, tile_offsets, list_counts,
-               fold_tiles=_fold_tiles(r, max_tiles, fold_mult),
-               max_tiles=max_tiles)                   # (C, qc, S)
+    kw = dict(fold_tiles=_fold_tiles(r, max_tiles, fold_mult),
+              max_tiles=max_tiles)
+    if scan_impl == "exact":
+        enc = scan_exact_csr(t_sel, csr_codes, tile_offsets, list_counts,
+                             **kw)                    # (C, qc, S)
+    else:
+        slot_counts = (qgrid >= 0).sum(1, dtype=torch.int32)
+        enc = scan_fold_csr(t_sel, csr_codes, tile_offsets, list_counts,
+                            slot_counts=slot_counts, n_blocks=n_blocks,
+                            **kw)
     my_enc = enc.reshape(C * qc, enc.shape[2])[pair_idx]  # (Q, Ps, S)
     my_enc = torch.where(in_slot[:, :, None], my_enc, ENC_INVALID)
     rowbase = (tile_offsets.long() * LANE_TILE)[probe_sub.clamp(max=C - 1)]
@@ -891,6 +901,7 @@ def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
     Q, d = q.shape
     P = n_probes
     q = _normalize(q, metric)
+    B = None                                          # real table blocks
     if scan_impl == "exact":
         tables_flat = _augment_queries(q)
     else:
@@ -908,7 +919,8 @@ def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
     probe_sel = _probe_select(q, active_centers, P)   # (Q, P)
 
     # -- scan rounds
-    kw = dict(max_tiles=max_tiles, fold_mult=fold_mult, scan_impl=scan_impl)
+    kw = dict(max_tiles=max_tiles, fold_mult=fold_mult, scan_impl=scan_impl,
+              n_blocks=B)
     v0, rows0, dropped = _bucket_scan_round(
         probe_sel[:, :1], tables_flat, csr_codes, tile_offsets, list_counts,
         qc=qc0, r=r, **kw)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. On first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
-whose file name carries a hash of the source, under ``_build/`` beside
-this package's sources, and loaded with ``ctypes``. A changed source
-builds to a new path; an unchanged one is loaded from the last build.
+whose file name carries a hash of the source and of the shared headers
+(``csrc/*.cuh``), under ``_build/`` beside this package's sources, and
+loaded with ``ctypes``. A changed source or header builds to a new path;
+an unchanged one is loaded from the last build.
 Nothing is compiled when the package is imported, and a failed build
 raises: there is no fallback.
 """
@@ -53,7 +54,8 @@ def _nvcc() -> str:
 def build(name: str) -> Build:
     """Compile (if needed) and load ``csrc/<name>.cu``."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     so = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
     seconds, log = 0.0, ""

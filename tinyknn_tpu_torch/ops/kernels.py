@@ -50,9 +50,9 @@ EXACT_MAX_POSITIONS = 1 << 16  # K2's 16-bit fold positions
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 _LAUNCH_ARGTYPES = {
-    "scan_fold_csr": [_vp, _int, _vp, _vp, _vp, _vp] + [_int] * 7 + [_vp],
+    "scan_fold_csr": [_vp, _int] + [_vp] * 5 + [_int] * 8 + [_vp],
     "scan_exact_csr": [_vp] * 5 + [_int] * 5 + [_vp],
-    "estimate_scan_tiled": [_vp, _int, _vp, _vp] + [_int] * 3 + [_vp],
+    "estimate_scan_tiled": [_vp, _int, _vp, _vp] + [_int] * 4 + [_vp],
 }
 
 
@@ -80,14 +80,18 @@ def _launch(name: str, device: torch.device, *args) -> None:
             lib, f"{name}_error_string")(err).decode())
 
 
-def _cuda_inputs(name: str, *tensors) -> None:
+def _cuda_inputs(name: str, *tensors, aligned: bool = False) -> None:
     """Raise unless the kernel can take these tensors: on a CUDA device
-    and contiguous (CPU tensors never get here)."""
+    and contiguous (CPU tensors never get here); with ``aligned``, also
+    starting on a 16-byte boundary (the one-hot kernels read tables and
+    codes in words)."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"no {name} for {dev}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous inputs")
+    if aligned and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} needs inputs on a 16-byte boundary")
 
 
 def pack_codes_tiled(codes_packed: torch.Tensor,
@@ -169,7 +173,8 @@ def _check_lists(rows, tiles, tile_offsets, counts, fold_tiles, max_tiles):
 
 
 def _check_args(tables_sel, codes_tiled, tile_offsets, counts, fold_tiles,
-                max_tiles):
+                max_tiles, slot_counts, n_blocks):
+    """K1's checks; returns ``(col_bits, enc_bias, n_blocks)``."""
     _check_lists(tables_sel, codes_tiled, tile_offsets, counts, fold_tiles,
                  max_tiles)
     M = tables_sel.shape[2]
@@ -179,12 +184,29 @@ def _check_args(tables_sel, codes_tiled, tile_offsets, counts, fold_tiles,
                          f"{tuple(codes_tiled.shape)}")
     if codes_tiled.dtype != torch.uint8:
         raise TypeError("code tiles must be uint8")
-    return fold_encoding(tables_sel.dtype, 2 * Bs_pad, max_tiles)
+    if slot_counts is not None and (
+            slot_counts.dtype != torch.int32
+            or slot_counts.shape != tile_offsets.shape
+            or slot_counts.device != tables_sel.device):
+        raise ValueError(f"slot_counts must be int32[{tables_sel.shape[0]}] "
+                         f"on the tables' device")
+    return (*fold_encoding(tables_sel.dtype, 2 * Bs_pad, max_tiles),
+            _n_blocks(n_blocks, 2 * Bs_pad))
+
+
+def _n_blocks(n_blocks, B_pad: int) -> int:
+    """The real table block count (``None``: ``B_pad``), checked."""
+    n = B_pad if n_blocks is None else int(n_blocks)
+    if not 1 <= n <= B_pad:
+        raise ValueError(f"n_blocks={n_blocks} outside 1..{B_pad}")
+    return n
 
 
 def scan_fold_csr(tables_sel: torch.Tensor, codes_tiled: torch.Tensor,
                   tile_offsets: torch.Tensor, counts: torch.Tensor, *,
-                  fold_tiles: int, max_tiles: int) -> torch.Tensor:
+                  fold_tiles: int, max_tiles: int,
+                  slot_counts: torch.Tensor | None = None,
+                  n_blocks: int | None = None) -> torch.Tensor:
     """Ragged scan over CSR-tiled lists, emitting the encoded fold.
 
     tables_sel: int8 or bf16 [C, qc, 16 * B_pad], list c's query slots
@@ -195,20 +217,30 @@ def scan_fold_csr(tables_sel: torch.Tensor, codes_tiled: torch.Tensor,
     max_tiles * 128) with (p // 128 mod fold_tiles) * 128 + p % 128 = j,
     or 2^31 - 1 where there is none.
 
+    ``slot_counts`` int32[C] (``None``: every slot): list c's first
+    slot_counts[c] slots are occupied; the rest are not scanned and hold
+    2^31 - 1. ``n_blocks``: the real table block count (``None``:
+    B_pad); the code bytes past ceil(n_blocks / 2) are skipped, so the
+    table rows of blocks >= n_blocks must be zero, as
+    ``permute_tables_csr`` makes them.
+
     Where the JAX kernel takes csr_scan_map's four step maps, this one
     takes ``tile_offsets``: each CUDA block finds its own tiles.
 
     CUDA tensors launch the kernel (and add one to
     ``scan_fold_csr.launches``); CPU tensors run the plain version.
     """
-    col_bits, enc_bias = _check_args(tables_sel, codes_tiled, tile_offsets,
-                                     counts, fold_tiles, max_tiles)
+    col_bits, enc_bias, n_blocks = _check_args(
+        tables_sel, codes_tiled, tile_offsets, counts, fold_tiles, max_tiles,
+        slot_counts, n_blocks)
     if tables_sel.device.type == "cpu":
-        return scan_fold_csr_reference(tables_sel, codes_tiled, tile_offsets,
-                                       counts, fold_tiles=fold_tiles,
-                                       max_tiles=max_tiles)
+        return scan_fold_csr_reference(
+            tables_sel, codes_tiled, tile_offsets, counts,
+            fold_tiles=fold_tiles, max_tiles=max_tiles,
+            slot_counts=slot_counts, n_blocks=n_blocks)
     _cuda_inputs("scan_fold_csr", tables_sel, codes_tiled, tile_offsets,
-                 counts)
+                 counts, *([] if slot_counts is None else [slot_counts]),
+                 aligned=True)
     C, qc, _ = tables_sel.shape
     Bs_pad = codes_tiled.shape[1]
     bf16 = int(tables_sel.dtype == torch.bfloat16)
@@ -218,8 +250,10 @@ def scan_fold_csr(tables_sel: torch.Tensor, codes_tiled: torch.Tensor,
         return enc
     _launch("scan_fold_csr", tables_sel.device, tables_sel.data_ptr(), bf16,
             codes_tiled.data_ptr(), tile_offsets.data_ptr(),
-            counts.data_ptr(), enc.data_ptr(), C, qc, Bs_pad, fold_tiles,
-            max_tiles, col_bits, enc_bias)
+            counts.data_ptr(),
+            None if slot_counts is None else slot_counts.data_ptr(),
+            enc.data_ptr(), C, qc, Bs_pad, n_blocks, fold_tiles, max_tiles,
+            col_bits, enc_bias)
     scan_fold_csr.launches += 1
     return enc
 
@@ -230,20 +264,23 @@ scan_fold_csr.launches = 0
 def scan_fold_csr_reference(tables_sel: torch.Tensor,
                             codes_tiled: torch.Tensor,
                             tile_offsets: torch.Tensor, counts: torch.Tensor,
-                            *, fold_tiles: int,
-                            max_tiles: int) -> torch.Tensor:
+                            *, fold_tiles: int, max_tiles: int,
+                            slot_counts: torch.Tensor | None = None,
+                            n_blocks: int | None = None) -> torch.Tensor:
     """Plain torch version of ``scan_fold_csr`` (same arguments, same
     result on any device).
 
     Per chunk of lists it gathers ``max_tiles`` tiles densely, sums the
-    table entries in int32 (f32 for bf16 tables) in logical block order
-    (the kernel's order, so bf16 sums agree bit for bit), encodes, masks
-    positions past each list's end, and min-folds tile ti into segment
-    ti mod fold_tiles. Calls on CUDA tensors add one to
+    table entries of the first ceil(n_blocks / 2) code bytes in int32
+    (f32 for bf16 tables) in logical block order (the kernel's order),
+    encodes, masks positions past each list's end, and min-folds tile ti
+    into segment ti mod fold_tiles; slots past ``slot_counts`` get the
+    sentinel. Calls on CUDA tensors add one to
     ``scan_fold_csr_reference.cuda_calls``.
     """
-    col_bits, enc_bias = _check_args(tables_sel, codes_tiled, tile_offsets,
-                                     counts, fold_tiles, max_tiles)
+    col_bits, enc_bias, n_blocks = _check_args(
+        tables_sel, codes_tiled, tile_offsets, counts, fold_tiles, max_tiles,
+        slot_counts, n_blocks)
     if tables_sel.device.type == "cuda":
         scan_fold_csr_reference.cuda_calls += 1
     C, qc, _ = tables_sel.shape
@@ -257,7 +294,7 @@ def scan_fold_csr_reference(tables_sel: torch.Tensor,
         lo, hi = codes & 15, codes >> 4
         n, _, L = codes.shape
         est = torch.zeros((n, qc, L), dtype=acc_dtype, device=tb.device)
-        for sb in range(Bs_pad):                      # blocks 2sb, 2sb + 1
+        for sb in range((n_blocks + 1) // 2):         # blocks 2sb, 2sb + 1
             est += torch.gather(tb[:, :, :, sb], 2,
                                 lo[:, None, sb].expand(n, qc, L))
             est += torch.gather(tb[:, :, :, Bs_pad + sb], 2,
@@ -267,8 +304,13 @@ def scan_fold_csr_reference(tables_sel: torch.Tensor,
         return (est + enc_bias) << col_bits
 
     tables = tables_sel.to(acc_dtype).reshape(C, qc, 16, 2 * Bs_pad)
-    return _fold_reference(tables, codes_tiled, tile_offsets, counts,
-                           fold_tiles, max_tiles, value)
+    enc = _fold_reference(tables, codes_tiled, tile_offsets, counts,
+                          fold_tiles, max_tiles, value)
+    if slot_counts is None:
+        return enc
+    empty = (torch.arange(qc, device=enc.device)[None, :]
+             >= slot_counts[:, None])                 # (C, qc)
+    return enc.masked_fill_(empty[:, :, None], ENC_INVALID)
 
 
 scan_fold_csr_reference.cuda_calls = 0
@@ -461,7 +503,7 @@ def estimate_scan_tiled(codes_tiled: torch.Tensor,
     Q, B, _ = tables.shape
     T, Bs_pad, _ = codes_tiled.shape
     tsel = permute_tables_csr(tables.reshape(Q, 16 * B), B).contiguous()
-    _cuda_inputs("estimate_scan_tiled", tsel, codes_tiled)
+    _cuda_inputs("estimate_scan_tiled", tsel, codes_tiled, aligned=True)
     out = torch.empty((Q, T * LANE_TILE), device=tables.device,
                       dtype=(torch.int32 if tables.dtype == torch.int8
                              else torch.float32))
@@ -469,7 +511,7 @@ def estimate_scan_tiled(codes_tiled: torch.Tensor,
         return out
     _launch("estimate_scan_tiled", tables.device, tsel.data_ptr(),
             _ESTIMATE_KINDS[tables.dtype], codes_tiled.data_ptr(),
-            out.data_ptr(), Q, T, Bs_pad)
+            out.data_ptr(), Q, T, Bs_pad, B)
     estimate_scan_tiled.launches += 1
     return out
 
@@ -554,7 +596,7 @@ def fold_topk_tiled(codes_tiled: torch.Tensor, tables: torch.Tensor,
     tsel_b = tsel[None].expand(C, Q, tsel.shape[1]).contiguous()
     enc = scan_fold_csr(tsel_b, codes_tiled, toff.to(torch.int32),
                         counts.to(torch.int32), fold_tiles=W,
-                        max_tiles=seg_tiles)          # (C, Q, S)
+                        max_tiles=seg_tiles, n_blocks=B)  # (C, Q, S)
     S = enc.shape[2]
     pool = enc.permute(1, 0, 2).reshape(Q, C * S)
     if C * S < rescore:                               # tiny corpus

@@ -67,7 +67,7 @@ def merge_topk(vals_a, idx_a, vals_b, idx_b):
 
 
 def streaming_topk_init(batch_shape, k: int, id_dtype=torch.int32,
-                        device="cpu"):
+                        device="cuda"):
     """Initial (vals, ids) state for ``merge_topk``: every slot empty
     (+inf / -1), on ``device``."""
     shape = tuple(batch_shape) + (k,)
