@@ -18,9 +18,10 @@ In order, and stopping at the first failure with a non-zero exit:
    not tied), with every slot, with the real block count below the
    padded one, and with 0, 1, 7, 8, 9 and all slots occupied; K2
    scan_exact_csr on integer-valued inputs (bit-equal) and random ones
-   (the same rule as random bf16 K1); K3 estimate_scan_tiled for int8
-   and f32 tables (bit-equal) and bf16 tables (rtol 1e-6), 9 to 45
-   queries;
+   (the same rule as random bf16 K1), with every slot, with 0, 1, 7, 8,
+   9 and all slots occupied, and at widths d_aug of 40 and 45; K3
+   estimate_scan_tiled for int8 and f32 tables (bit-equal) and bf16
+   tables (rtol 1e-6), 9 to 45 queries;
 4. PQ path: fits and builds IVF("angular", 1087, FastPQ(2)) on the
    GloVe-shape clustered dataset (1,183,514 x 100, made from a seed),
    queries its 10,000 queries at three points (int8 p1=84, bf16 p1=17,
@@ -46,10 +47,13 @@ In order, and stopping at the first failure with a non-zero exit:
 5. exact path: switches that index to the exact engine (build_probes=1,
    P=1), then rebuilds it with build_probes=2 (P=1 and P=2), grades
    recall10@10, checks K2 ran, and holds and times K2 against its plain
-   version on the round-0 inputs. Its serving surface (5b): the stream
-   (R = 2, recall >= 0.96, one K2 launch per batch, its first K2 call
-   against the plain version), ``rescore_rows`` at build_probes 1 and 2
-   (identical ids) and exact gather mode (the rule of 4b);
+   version on each K2 shape of the build_probes=1 query (round 0 at 32
+   slots and the retry at 128, with the batch's own slot counts). Its
+   serving surface (5b): the stream (R = 2, recall >= 0.96, one K2
+   launch per batch, its first K2 call against the plain version), a
+   warm ``device_out`` stream call under
+   ``set_sync_debug_mode("error")``, ``rescore_rows`` at build_probes 1
+   and 2 (identical ids) and exact gather mode (the rule of 4b);
 6. full-scan path: FastPQ(2, rotate_dim=None) on the reference's own
    example (random 16,000 x 128, 1,000 queries, seed 10): true-NN rank
    of the full-scan estimates, search recall1@10 for methods 'exact'
@@ -75,11 +79,12 @@ timed IVF query and the reference example's search calls also get a
 torch.profiler stage profile: device time per kernel.
 
 Each timed kernel call also gets its bound: the larger of the bytes it
-must move over 3.35 TB/s and its one-hot tensor-core operations over
-the int8 or bf16 peak, counting only occupied slots and real blocks
-(``k1_bound``, ``k2_bound``, ``k3_bound``). K3 is also timed against
-``torch._int_mm`` over the one-hot of the same codes (``k3_library``),
-a yardstick the port never calls; K1 and K2 have no such call.
+must move over 3.35 TB/s and its tensor-core operations (one-hot, or
+K2's dot products) over the int8 or bf16 peak, counting only occupied
+slots and real blocks (``k1_bound``, ``k2_bound``, ``k3_bound``). K3
+is also timed against ``torch._int_mm`` over the one-hot of the same
+codes (``k3_library``), a yardstick the port never calls; K1 and K2
+have no such call.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, a JSON object describing each kernel, and the result
@@ -233,20 +238,21 @@ def compare_fold(got, want, bf16: bool, exact: bool, B_pad: int,
 
 
 def exact_case(seed: int, kind: str, n: int = 900, d: int = 12, C: int = 4,
-               qc: int = 20):
+               qc: int = 20, d_aug: int | None = None):
     """A skewed scan_exact_csr input as NumPy arrays: ``(q_aug, x_aug,
     assign)``, q_aug f32[C, qc, d_aug], x_aug f32[n, d_aug] (values
     exact in bf16), lists as in ``fold_case``. 'int': small integers, so
     every dot product is exact in f32 (some negative, clamped to 0);
     'random': the exact engine's own augmentation of Gaussian points
-    and queries."""
+    and queries. ``d_aug`` (default: the engine's width, a multiple of
+    16) may be any width >= d + 3; the extra columns are zeros."""
     import torch
     from tinyknn_tpu_torch.models.ivf import (
         _augment_queries, _aug_dim)
     rng = np.random.default_rng(seed)
     p = np.array([0.7, 0.25, 0.05, 0.0][:C])
     assign = rng.choice(C, size=(n, 1), p=p / p.sum())
-    d_aug = _aug_dim(d)
+    d_aug = _aug_dim(d) if d_aug is None else d_aug
     if kind == "int":
         q_aug = rng.integers(-3, 8, size=(C, qc, d_aug)).astype(np.float32)
         x_aug = rng.integers(0, 8, size=(n, d_aug)).astype(np.float32)
@@ -260,7 +266,9 @@ def exact_case(seed: int, kind: str, n: int = 900, d: int = 12, C: int = 4,
     x_aug[:, d + 1] = xn - hi.numpy()
     x_aug[:, d + 2] = 1.0
     q = torch.as_tensor(rng.standard_normal((C * qc, d)).astype(np.float32))
-    q_aug = _augment_queries(q).float().numpy().reshape(C, qc, d_aug)
+    q_aug = np.zeros((C * qc, d_aug), np.float32)
+    q_aug[:, :d + 3] = _augment_queries(q).float().numpy()[:, :d + 3]
+    q_aug = q_aug.reshape(C, qc, d_aug)
     x_aug = torch.as_tensor(x_aug).to(torch.bfloat16).float().numpy()
     return q_aug, x_aug, assign
 
@@ -370,25 +378,35 @@ def check_kernel_small(device) -> float:
 
 
 def check_exact_small(device) -> float:
-    """Phase 3, K2: kernel vs plain version on skewed synthetic lists."""
+    """Phase 3, K2: kernel vs plain version on skewed synthetic lists,
+    with every slot at fold widths 1, 2 and 6, at each slot count of
+    SLOT_COUNT_CASES, and at widths d_aug of 40 and 45 (not a multiple
+    of 16, zero-padded in the kernel; 45 not of 8 either)."""
     from tinyknn_tpu_torch.ops.kernels import (
         scan_exact_csr, scan_exact_csr_reference)
+    cases = [(d, qc, None, W, None) for d, qc in ((12, 20), (100, 40))
+             for W in (1, 2, 6)]
+    cases += [(d, qc, None, 2, s) for d, qc in ((12, 20), (100, 40))
+              for s in SLOT_COUNT_CASES]
+    cases += [(30, 20, d_aug, W, None) for d_aug in (40, 45) for W in (1, 6)]
     err = 0.0
-    for d, qc in ((12, 20), (100, 40)):
+    for d, qc, d_aug, W, s in cases:
         for kind in ("int", "random"):
-            for W in (1, 2, 6):
-                q_sel, vecs, toff, counts, max_tiles = exact_inputs(
-                    *exact_case(W + d, kind, d=d, qc=qc), device)
-                kw = dict(fold_tiles=W, max_tiles=max_tiles)
-                got = scan_exact_csr(q_sel, vecs, toff, counts, **kw)
-                want = scan_exact_csr_reference(q_sel, vecs, toff, counts,
-                                                **kw)
-                torch_sync()
-                e = compare_fold(got, want, True, kind == "int", 0,
-                                 max_tiles)
-                err = max(err, e)
-                print(f"  K2 d={d} qc={qc} {kind:6s} W={W}: ok (max value "
-                      f"error {e}, bit-equal {bool((got == want).all())})")
+            args = exact_inputs(
+                *exact_case(W + d, kind, d=d, qc=qc, d_aug=d_aug), device)
+            max_tiles = args[4]
+            args = args[:4]
+            kw = dict(fold_tiles=W, max_tiles=max_tiles)
+            if s is not None:
+                kw["slot_counts"] = slot_counts_for(s, args[3], qc)
+            got = scan_exact_csr(*args, **kw)
+            want = scan_exact_csr_reference(*args, **kw)
+            torch_sync()
+            e = compare_fold(got, want, True, kind == "int", 0, max_tiles)
+            err = max(err, e)
+            print(f"  K2 d={d} d_aug={args[0].shape[2]} qc={qc} {kind:6s} "
+                  f"W={W} slots {s}: ok (max value error {e}, bit-equal "
+                  f"{bool((got == want).all())})")
     return err
 
 
@@ -524,16 +542,22 @@ def k1_bound(args, kw):
 
 
 def k2_bound(args, kw):
-    """K2's bound for one call: the augmented queries, the vector tiles
-    of every list, the two per-list arrays, the fold written in full;
-    2 x d_aug operations per (slot, point) at the bf16 peak."""
+    """K2's bound for one call, from what its inputs need: the augmented
+    query rows of the occupied slots, the vector tiles of every list
+    with an occupied slot, the three per-list int32 arrays, the fold
+    written in full; 2 x d_aug operations per occupied (slot, point)
+    pair at the bf16 peak."""
+    import torch
     q_sel, _, _, counts = args[:4]
     C, qc, d_aug = q_sel.shape
+    sc = kw.get("slot_counts")
+    occ = (torch.full((C,), qc, device=q_sel.device) if sc is None
+           else sc.clamp(0, qc)).long()
     pts = counts.long().clamp(max=kw["max_tiles"] * 128)
-    tiles = int(((pts + 127) // 128).sum())
-    moved = (q_sel.numel() * 2 + tiles * d_aug * 128 * 2 + 2 * C * 4
-             + C * qc * kw["fold_tiles"] * 128 * 4)
-    return bound_ms(moved, 2 * d_aug * qc * int(pts.sum()), "bf16")
+    tiles = torch.where(occ > 0, (pts + 127) // 128, 0)
+    moved = (int(occ.sum()) * d_aug * 2 + int(tiles.sum()) * d_aug * 128 * 2
+             + 3 * C * 4 + C * qc * kw["fold_tiles"] * 128 * 4)
+    return bound_ms(moved, 2 * d_aug * int((occ * pts).sum()), "bf16")
 
 
 def k3_bound(codes_tiled, tables):
@@ -1114,14 +1138,17 @@ def exact_query(ivf, queries, truth, P: int, card: str, label: str):
 
 
 def exact_path(ivf, data, queries, truth, card):
-    """Phase 5: the exact engine through K2, build_probes 1 and 2."""
+    """Phase 5: the exact engine through K2, build_probes 1 and 2. Each
+    K2 shape of the build_probes=1 query (round 0 at 32 slots and the
+    retry at 128) is held against the plain version with the batch's
+    own slot counts, timed, and given its bound."""
     import torch
     import tinyknn_tpu_torch.models.ivf as ivf_module
     from tinyknn_tpu_torch.ops.kernels import (
         scan_exact_csr, scan_exact_csr_reference)
     g1, g2, slack = EXACT_GATES
-    captured = {}
-    undo = capture_first(ivf_module, "scan_exact_csr", captured)
+    captured = {}                       # first K2 call of each shape
+    undo = capture_first(ivf_module, "scan_exact_csr", captured, by_shape)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     _, t_switch = timed(lambda: ivf.set_scan_impl("exact"))
@@ -1167,6 +1194,21 @@ def exact_path(ivf, data, queries, truth, card):
         raise AssertionError(f"exact stream recall {rec:.4f} < {g1}")
     serving["stream"] = dict(recall=rec, seconds=t_stream,
                              floors=list(st["adaptive_qc_floors"]))
+    # a warm device_out call, floors cached: K2's slot counts are
+    # counted on the device, so no host sync may happen
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ivf.query_stream(stream, k=10, n_probes=1, device_out=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    serving_launches["device_out"] = read_counts(
+        "exact path, device_out")["scan_exact_csr"]
+    if serving_launches["device_out"] != STREAM_REPS[0]:
+        raise AssertionError(f"exact device_out: "
+                             f"{serving_launches['device_out']} K2 launches "
+                             f"for {STREAM_REPS[0]} batches")
+    print("  device_out under set_sync_debug_mode('error'): no sync")
     summary, serving_launches["rescore_rows"] = rescore_rows_check(
         ivf, qd, card, "exact, build_probes=1 P=1", "scan_exact_csr")
     serving["rescore_rows"] = [summary]
@@ -1198,29 +1240,36 @@ def exact_path(ivf, data, queries, truth, card):
         ivf, qd, card, "exact, build_probes=2 P=1", "scan_exact_csr")
     serving["rescore_rows"].append(summary)
 
-    print("K2 check, exact path round-0 inputs:")
-    args, kw = captured[torch.bfloat16]
-    got = scan_exact_csr(*args, **kw)
-    want = scan_exact_csr_reference(*args, **kw)
-    torch_sync()
-    err = compare_fold(got, want, True, False, 0, kw["max_tiles"])
-    print(f"  q_sel {tuple(args[0].shape)}, fold_tiles {kw['fold_tiles']}: "
-          f"ok (max value error {err}, bit-equal "
-          f"{bool((got == want).all())})")
-    del got, want
-    k_ms, p_ms, four = in_turns(lambda: scan_exact_csr(*args, **kw),
-                                lambda: scan_exact_csr_reference(*args,
-                                                                 **kw),
-                                KERNEL_TIMED_LAUNCHES)
-    b_ms, b_by = k2_bound(args, kw)
-    print(f"  times: kernel {four[0]:.4f} / {four[1]:.4f} ms, plain "
-          f"{four[2]:.4f} / {four[3]:.4f} ms per call, bound {b_ms:.4f} ms "
-          f"({b_by}) {card}")
-    err = max(err, e_stream)
+    print("K2 check, exact path inputs (each shape's first call):")
+    err, calls = e_stream, {}
+    for key, (args, kw) in captured.items():
+        got = scan_exact_csr(*args, **kw)
+        want = scan_exact_csr_reference(*args, **kw)
+        torch_sync()
+        e = compare_fold(got, want, True, False, 0, kw["max_tiles"])
+        same = bool(torch.equal(got, want))
+        del got, want
+        err = max(err, e)
+        occupied = int(kw["slot_counts"].clamp(max=args[0].shape[1]).sum())
+        b_ms, b_by = k2_bound(args, kw)
+        k_ms, p_ms, four = in_turns(lambda: scan_exact_csr(*args, **kw),
+                                    lambda: scan_exact_csr_reference(*args,
+                                                                     **kw),
+                                    KERNEL_TIMED_LAUNCHES)
+        calls[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, bit_equal=same,
+                          shape=f"q_sel {tuple(args[0].shape)}, fold_tiles "
+                                f"{kw['fold_tiles']}, {occupied} occupied "
+                                f"slots")
+        print(f"  q_sel {tuple(args[0].shape)}, fold_tiles "
+              f"{kw['fold_tiles']}, occupied slots {occupied}: ok (max value "
+              f"error {e}, bit-equal {same}); kernel {four[0]:.4f} / "
+              f"{four[1]:.4f} ms, plain {four[2]:.4f} / {four[3]:.4f} ms per "
+              f"call, bound {b_ms:.4f} ms ({b_by}) {card}")
     summary = {"set_scan_impl_s": t_switch, "build_bp2_s": t_build,
                "queries": [bp1] + bp2, "peak_gib": peak_gb,
                "serving": serving}
-    return summary, launches, err, (k_ms, p_ms, b_ms, b_by), serving_launches
+    return summary, launches, err, calls, serving_launches
 
 
 def true_nn_ranks(est, truth):
@@ -1453,21 +1502,13 @@ def k3_real_size(ivf, queries, truth, card):
         "approx_recall10_at_10": rec_a, "wrappers_ms": wrappers}
 
 
-def k1_main_calls(calls: dict):
-    """The K1 readings of the kernels line, from phase 4's timed shapes:
-    int8 round 0 (32 slots), the int8 retry (128 slots) and bf16 round
-    0, each the first of its kind."""
-    import torch
-
-    def first(dtype, qc=None):
-        for (dt, shape, _), row in calls.items():
-            if dt == dtype and qc in (None, shape[1]):
-                return row
-        raise AssertionError(f"no {dtype} K1 call with {qc} slots was "
-                             f"timed")
-
-    return (first(torch.int8, 32), first(torch.int8, 128),
-            first(torch.bfloat16))
+def first_timed(calls: dict, name: str, dtype, qc=None):
+    """The reading of the first timed shape of ``dtype`` (and ``qc``
+    slots, unless None) among a path's ``by_shape`` calls."""
+    for (dt, shape, _), row in calls.items():
+        if dt == dtype and qc in (None, shape[1]):
+            return row
+    raise AssertionError(f"no {dtype} {name} call with {qc} slots was timed")
 
 
 def main() -> int:
@@ -1529,7 +1570,7 @@ def main() -> int:
     err["scan_fold_csr"] = max(err["scan_fold_csr"], e1)
 
     # -- 5. exact path (K2), with its serving surface (5b)
-    exact_sum, k2_launches, e2, k2_times, k2_serving = exact_path(
+    exact_sum, k2_launches, e2, k2_calls, k2_serving = exact_path(
         ivf, data, queries, truth, card)
     err["scan_exact_csr"] = max(err["scan_exact_csr"], e2)
 
@@ -1544,7 +1585,11 @@ def main() -> int:
     err["estimate_scan_tiled"] = max(err["estimate_scan_tiled"], e3)
     del ivf
 
-    r0, retry, bf = k1_main_calls(k1_calls)
+    r0 = first_timed(k1_calls, "K1", torch.int8, 32)
+    retry = first_timed(k1_calls, "K1", torch.int8, 128)
+    bf = first_timed(k1_calls, "K1", torch.bfloat16)
+    e_r0 = first_timed(k2_calls, "K2", torch.bfloat16, 32)
+    e_retry = first_timed(k2_calls, "K2", torch.bfloat16, 128)
     print(json.dumps({"pq_path": pq_sum, "serving_path": serving_sum,
                       "exact_path": exact_sum,
                       "full_scan": fs_sum, "k3_real_size": k3_sum,
@@ -1566,9 +1611,11 @@ def main() -> int:
             approx_route_bound_ms=k1_fs_times[2],
             serving_launches=k1_serving),
         "scan_exact_csr": dict(
-            launches=k2_launches, ms=k2_times[0], plain_ms=k2_times[1],
-            bound_ms=k2_times[2], bound_by=k2_times[3], library_ms=None,
+            launches=k2_launches, **e_r0, library_ms=None,
             library_reason=NO_LIBRARY["scan_exact_csr"],
+            retry_shape=e_retry["shape"], retry_ms=e_retry["ms"], retry_plain_ms=e_retry["plain_ms"],
+            retry_bound_ms=e_retry["bound_ms"],
+            retry_bound_by=e_retry["bound_by"],
             serving_launches=k2_serving),
         "estimate_scan_tiled": dict(
             launches=k3_launches, ms=k3_times[0], plain_ms=k3_times[1],

@@ -12,9 +12,12 @@ bf16 tables with integer values must give bit-equal fold buffers;
 random bf16 tables agree within 1 bf16 ulp (the kernel adds each
 product in f32 in the plain version's order, so they are designed
 bit-equal too); also with the real block count below the padded one
-and at 0, 1, 7, 8, 9 and all occupied slots. K2 ``scan_exact_csr``:
-bit-equal on integer-valued inputs, within 1 bf16 ulp (positions equal
-where the values are) on random ones. K3 ``estimate_scan_tiled``:
+and at 0, 1, 7, 8, 9 and all occupied slots. K2 ``scan_exact_csr``
+(bf16 tensor-core products): bit-equal on integer-valued inputs, within
+1 bf16 ulp (positions equal where the values are) on random ones; also
+at 0, 1, 7, 8, 9 and all occupied slots, at widths d_aug that are not a
+multiple of 16, and at d_aug = 1024, which walks many K chunks. K3
+``estimate_scan_tiled``:
 bit-equal for int8 and f32 tables, rtol 1e-6 for bf16 tables, at query
 counts that are not a multiple of 16, and with 232 blocks, too wide for
 the int8 wgmma staging.
@@ -22,7 +25,7 @@ the int8 wgmma staging.
 The serving surface on the card: the stream and ``rescore_rows`` give
 ``query()``'s ids through K1/K2; gather mode and the 'xla' engine run
 no kernel and no plain kernel version; a warm ``device_out`` stream
-call makes no host sync.
+call makes no host sync, on either engine.
 """
 
 import pytest
@@ -108,19 +111,54 @@ def test_kernel_rejects_bad_input(cuda):
                       fold_tiles=1, max_tiles=max_tiles)
 
 
+def _hold_exact(cuda, case, exact: bool, **kw):
+    """K2 against its plain version on an ``exact_case``: one launch,
+    then ``compare_fold``'s rule (bit equality with ``exact``)."""
+    *args, max_tiles = exact_inputs(*case, cuda)
+    kw["max_tiles"] = max_tiles
+    if "slot_counts" in kw:
+        kw["slot_counts"] = slot_counts_for(kw["slot_counts"], args[3],
+                                            args[0].shape[1])
+    launches = scan_exact_csr.launches
+    got = scan_exact_csr(*args, **kw)
+    want = scan_exact_csr_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert scan_exact_csr.launches == launches + 1
+    compare_fold(got, want, True, exact, 0, max_tiles)
+
+
 @pytest.mark.parametrize("d, qc", [(12, 20), (100, 40), (30, 8)])
 @pytest.mark.parametrize("kind", ["int", "random"])
 @pytest.mark.parametrize("W", [1, 2, 6])
 def test_exact_kernel_matches_plain(cuda, W, kind, d, qc):
-    q_sel, vecs, toff, counts, max_tiles = exact_inputs(
-        *exact_case(W + d, kind, d=d, qc=qc), cuda)
-    kw = dict(fold_tiles=W, max_tiles=max_tiles)
-    launches = scan_exact_csr.launches
-    got = scan_exact_csr(q_sel, vecs, toff, counts, **kw)
-    want = scan_exact_csr_reference(q_sel, vecs, toff, counts, **kw)
-    torch.cuda.synchronize()
-    assert scan_exact_csr.launches == launches + 1
-    compare_fold(got, want, True, kind == "int", 0, max_tiles)
+    _hold_exact(cuda, exact_case(W + d, kind, d=d, qc=qc), kind == "int",
+                fold_tiles=W)
+
+
+@pytest.mark.parametrize("d, qc", [(12, 20), (100, 40)])
+@pytest.mark.parametrize("kind", ["int", "random"])
+@pytest.mark.parametrize("s", SLOT_COUNT_CASES)
+def test_exact_kernel_slot_counts_match_plain(cuda, s, kind, d, qc):
+    _hold_exact(cuda, exact_case(5 + d, kind, d=d, qc=qc), kind == "int",
+                fold_tiles=2, slot_counts=s)
+
+
+@pytest.mark.parametrize("d_aug", [48, 40, 45])
+@pytest.mark.parametrize("kind", ["int", "random"])
+@pytest.mark.parametrize("W", [1, 6])
+def test_exact_kernel_any_width(cuda, W, kind, d_aug):
+    """Widths that are a multiple of 16 (48), of 8 only (40; zero pad
+    rows in the kernel) and of neither (45; 2-byte query staging)."""
+    _hold_exact(cuda, exact_case(W + d_aug, kind, d=30, qc=20, d_aug=d_aug),
+                kind == "int", fold_tiles=W)
+
+
+@pytest.mark.parametrize("kind", ["int", "random"])
+def test_exact_kernel_wide_vectors(cuda, kind):
+    """d_aug = 1024 walks 32 K chunks of the vector tiles with the same
+    kernel; 40 slots take two slot blocks."""
+    _hold_exact(cuda, exact_case(7, kind, n=600, d=1000, qc=40, d_aug=1024),
+                kind == "int", fold_tiles=2, slot_counts=33)
 
 
 def test_exact_kernel_rejects_bad_input(cuda):
@@ -135,6 +173,14 @@ def test_exact_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         scan_exact_csr(q_sel[:, ::2], vecs, toff, counts, fold_tiles=1,
                        max_tiles=max_tiles)           # not contiguous
+    for sc in (counts.long(), counts[:2], counts.cpu()):
+        with pytest.raises(ValueError):
+            scan_exact_csr(q_sel, vecs, toff, counts, fold_tiles=1,
+                           max_tiles=max_tiles, slot_counts=sc)
+    with pytest.raises(ValueError):                   # not contiguous
+        scan_exact_csr(q_sel, vecs, toff, counts, fold_tiles=1,
+                       max_tiles=max_tiles,
+                       slot_counts=torch.stack([counts, counts], 1)[:, 0])
 
 
 @pytest.mark.parametrize("n, B, Q", [(1000, 8, 20), (300, 56, 9),
@@ -234,3 +280,21 @@ def test_device_out_stream_never_syncs(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert out.device.type == "cuda" and out.dtype == torch.int32
     assert dropped.device.type == "cuda" and int(dropped) == 0
+
+
+def test_exact_device_out_stream_never_syncs(cuda):
+    """The exact engine's stream counts K2's slot counts on the device:
+    a warm device_out call waits for nothing on the host."""
+    ivf, qs = _cuda_index(cuda, "exact")
+    stream = torch.stack([qs, qs + 1e-6])
+    ivf.query_stream(stream, k=8, n_probes=2)          # measures the floors
+    torch.cuda.synchronize()
+    launches = scan_exact_csr.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, dropped = ivf.query_stream(stream, k=8, n_probes=2,
+                                        device_out=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.device.type == "cuda" and int(dropped) == 0
+    assert scan_exact_csr.launches > launches

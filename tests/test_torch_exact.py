@@ -7,6 +7,11 @@
   (every sum exact in f32), decoded values within 1 bf16 ulp and equal
   positions wherever the values are equal on random ones (XLA sums the
   dimensions in another order);
+* ``slot_counts``: scan_exact_csr (on a CPU tensor, its plain version)
+  equals the Pallas kernel on every occupied slot, by the same rules,
+  and holds the sentinel on every other, at 0, 1, 7, 8, 9 and all
+  occupied slots and at mixed per-list counts; bad counts are refused;
+  the exact IVF query's ids do not move with the counts it passes;
 * the slice as a whole: a JAX ``IVF(scan_impl="exact")`` saved with
   ``save_ivf`` and served from the port answers with the same sorted
   exact distances per query at rtol 1e-5.
@@ -18,7 +23,13 @@ import torch
 
 import jax.numpy as jnp
 
-from chip_smoke import compare_fold, exact_case, exact_inputs
+from chip_smoke import (
+    SLOT_COUNT_CASES,
+    compare_fold,
+    exact_case,
+    exact_inputs,
+    slot_counts_for,
+)
 from tinyknn_tpu import IVF as JaxIVF
 from tinyknn_tpu import FastPQ as JaxFastPQ
 from tinyknn_tpu.io import save_ivf
@@ -26,12 +37,14 @@ from tinyknn_tpu.models import ivf as jax_ivf_module
 from tinyknn_tpu.ops import kernels as jk
 from tinyknn_tpu.utils.grouping import csr_scan_map
 from tinyknn_tpu_torch import IVF, FastPQ, load_ivf, make_clustered
+from tinyknn_tpu_torch.models import ivf as ivf_module
 from tinyknn_tpu_torch.models.ivf import (
     _aug_dim,
     _augment_data_csr,
     _augment_queries,
 )
 from tinyknn_tpu_torch.ops.kernels import (
+    ENC_INVALID,
     scan_exact_csr,
     scan_exact_csr_reference,
 )
@@ -126,6 +139,66 @@ def test_wrapper_rejects_bad_input():
     with pytest.raises(ValueError):                   # > 65,536 positions
         scan_exact_csr(q_sel, vecs, toff, counts, fold_tiles=1,
                        max_tiles=513)
+
+
+@pytest.mark.parametrize("kind", ["int", "random"])
+@pytest.mark.parametrize("s", SLOT_COUNT_CASES)
+def test_slot_counts_match_jax_kernel(kind, s):
+    qc = 20
+    case = exact_case(41, kind, d=12, qc=qc)
+    want = _jax_exact(*case, 2)
+    q_sel, vecs, toff, counts, max_tiles = exact_inputs(*case, "cpu")
+    assert int(counts[3]) == 0 and int(counts[0]) % 128   # empty; ragged
+    got = scan_exact_csr(q_sel, vecs, toff, counts, fold_tiles=2,
+                         max_tiles=max_tiles,
+                         slot_counts=slot_counts_for(s, counts, qc))
+    n = qc if s is None else s
+    assert bool((got[:, n:] == ENC_INVALID).all())
+    compare_fold(got[:, :n], torch.from_numpy(want[:, :n].copy()), True,
+                 kind == "int", 0, max_tiles)
+
+
+def test_mixed_slot_counts_match_jax_kernel():
+    case = exact_case(42, "int", d=12, qc=20)
+    want = torch.from_numpy(_jax_exact(*case, 1).copy())
+    q_sel, vecs, toff, counts, max_tiles = exact_inputs(*case, "cpu")
+    sc = torch.tensor([20, 9, 0, 3], dtype=torch.int32)
+    got = scan_exact_csr(q_sel, vecs, toff, counts, fold_tiles=1,
+                         max_tiles=max_tiles, slot_counts=sc)
+    for c, n in enumerate(sc.tolist()):
+        assert torch.equal(got[c, :n], want[c, :n])
+        assert bool((got[c, n:] == ENC_INVALID).all())
+
+
+def test_bad_slot_counts_are_refused():
+    q_sel, vecs, toff, counts, max_tiles = exact_inputs(
+        *exact_case(5, "int"), "cpu")
+    kw = dict(fold_tiles=1, max_tiles=max_tiles)
+    for sc in (counts.long(), counts[:2], counts.to("meta")):
+        for fn in (scan_exact_csr, scan_exact_csr_reference):
+            with pytest.raises(ValueError):
+                fn(q_sel, vecs, toff, counts, slot_counts=sc, **kw)
+
+
+def test_exact_query_ids_do_not_move_with_slot_counts(monkeypatch):
+    """The slot counts mark only slots that no pair reads: the exact
+    engine's ids are those of the scan over every slot."""
+    X, qs = make_clustered(1500, 16, 96, seed=9)
+    ivf = IVF("euclidean", 12, FastPQ(2, device="cpu"), scan_impl="exact",
+              device="cpu").fit(X).build(X, n_probes=2)
+    seen = []
+
+    def every_slot(*args, slot_counts=None, **kw):
+        seen.append(slot_counts)
+        return scan_exact_csr(*args, **kw)
+
+    want = ivf.query(qs, k=10, n_probes=3, mode="bucket")
+    monkeypatch.setattr(ivf_module, "scan_exact_csr", every_slot)
+    got = ivf.query(qs, k=10, n_probes=3, mode="bucket")
+    assert torch.equal(got, want)
+    assert seen and all(s is not None and s.dtype == torch.int32
+                        for s in seen)
+    assert int(seen[0].sum()) == len(qs)              # round 0: one per query
 
 
 CONFIGS = [("euclidean", 1, 1200, 16, 8), ("angular", 2, 1500, 24, 12),

@@ -2,8 +2,10 @@
 neither JAX nor triton and initialises no CUDA. Run in a subprocess so
 this session's imports cannot mask a regression."""
 
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 _PROG = """
 import sys
@@ -25,11 +27,17 @@ def test_import_pulls_in_no_jax_triton_or_cuda():
     assert "clean" in r.stdout
 
 
+_JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|tinyknn_tpu)\b", re.M)
+_ROOT = Path(__file__).resolve().parent.parent
+
+
 def test_package_source_names_no_jax():
     """No module of the port imports jax or the JAX package."""
-    from pathlib import Path
-    import re
-    root = Path(__file__).resolve().parent.parent / "tinyknn_tpu_torch"
-    pat = re.compile(r"^\s*(import|from)\s+(jax|tinyknn_tpu)\b", re.M)
-    hits = [str(p) for p in root.rglob("*.py") if pat.search(p.read_text())]
+    hits = [str(p) for p in (_ROOT / "tinyknn_tpu_torch").rglob("*.py")
+            if _JAX_IMPORT.search(p.read_text())]
     assert not hits, hits
+
+
+def test_chip_smoke_names_no_jax():
+    """The port's smoke run imports neither jax nor the JAX package."""
+    assert not _JAX_IMPORT.search((_ROOT / "chip_smoke.py").read_text())

@@ -776,9 +776,10 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
     dropped)``: each pair's encoded fold row and its list's first flat
     row. 'xla' returns ``(vals f32[Q, Ps, r], rows int64[Q, Ps, r],
     dropped)``: each pair's r smallest estimates (+inf = no candidate)
-    and their flat rows. 'fused' hands K1 each list's occupied slot
-    count, counted on the device, and ``n_blocks``, the real table
-    block count: it scans neither the empty slots nor the pad blocks.
+    and their flat rows. 'fused' and 'exact' hand their kernel each
+    list's occupied slot count, counted on the device, so it scans no
+    empty slot; 'fused' also hands K1 ``n_blocks``, the real table block
+    count, so it skips the pad blocks.
     """
     C = tile_offsets.shape[0]
     qgrid, pair_idx, in_slot, dropped = _bucket_pairs(probe_sub, C, qc)
@@ -791,15 +792,14 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
         return (torch.where(in_slot[:, :, None], vals, float("inf")),
                 torch.where(in_slot[:, :, None], rows, 0), dropped)
     kw = dict(fold_tiles=_fold_tiles(r, max_tiles, fold_mult),
-              max_tiles=max_tiles)
+              max_tiles=max_tiles,
+              slot_counts=(qgrid >= 0).sum(1, dtype=torch.int32))
     if scan_impl == "exact":
         enc = scan_exact_csr(t_sel, csr_codes, tile_offsets, list_counts,
                              **kw)                    # (C, qc, S)
     else:
-        slot_counts = (qgrid >= 0).sum(1, dtype=torch.int32)
         enc = scan_fold_csr(t_sel, csr_codes, tile_offsets, list_counts,
-                            slot_counts=slot_counts, n_blocks=n_blocks,
-                            **kw)
+                            n_blocks=n_blocks, **kw)
     my_enc = enc.reshape(C * qc, enc.shape[2])[pair_idx]  # (Q, Ps, S)
     my_enc = torch.where(in_slot[:, :, None], my_enc, ENC_INVALID)
     rowbase = (tile_offsets.long() * LANE_TILE)[probe_sub.clamp(max=C - 1)]

@@ -51,7 +51,7 @@ EXACT_MAX_POSITIONS = 1 << 16  # K2's 16-bit fold positions
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 _LAUNCH_ARGTYPES = {
     "scan_fold_csr": [_vp, _int] + [_vp] * 5 + [_int] * 8 + [_vp],
-    "scan_exact_csr": [_vp] * 5 + [_int] * 5 + [_vp],
+    "scan_exact_csr": [_vp] * 6 + [_int] * 5 + [_vp],
     "estimate_scan_tiled": [_vp, _int, _vp, _vp] + [_int] * 4 + [_vp],
 }
 
@@ -83,8 +83,8 @@ def _launch(name: str, device: torch.device, *args) -> None:
 def _cuda_inputs(name: str, *tensors, aligned: bool = False) -> None:
     """Raise unless the kernel can take these tensors: on a CUDA device
     and contiguous (CPU tensors never get here); with ``aligned``, also
-    starting on a 16-byte boundary (the one-hot kernels read tables and
-    codes in words)."""
+    starting on a 16-byte boundary (the kernels read their operands in
+    16-byte pieces)."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"no {name} for {dev}")
@@ -153,30 +153,42 @@ def fold_encoding(tables_dtype: torch.dtype, B_pad: int,
     raise TypeError(f"tables must be int8 or bfloat16, not {tables_dtype}")
 
 
-def _check_lists(rows, tiles, tile_offsets, counts, fold_tiles, max_tiles):
+def _check_lists(rows, tiles, tile_offsets, counts, fold_tiles, max_tiles,
+                 slot_counts):
     """The checks K1 and K2 share: ``rows`` [C, qc, ...] per-list query
-    rows, ``tiles`` [T, ..., 128] list tiles, int32[C] offsets and counts
-    on one device, positive widths."""
+    rows, ``tiles`` [T, ..., 128] list tiles, int32[C] offsets, counts
+    and (unless ``None``) slot counts on one device, positive widths."""
     C = rows.shape[0]
     if tiles.ndim != 3 or tiles.shape[2] != LANE_TILE:
         raise ValueError(f"tiles must be [T, ..., {LANE_TILE}], not "
                          f"{tuple(tiles.shape)}")
-    for name, t in (("tile_offsets", tile_offsets), ("counts", counts)):
-        if t.dtype != torch.int32 or t.shape != (C,):
+    for name, t in (("tile_offsets", tile_offsets), ("counts", counts),
+                    ("slot_counts", slot_counts)):
+        if t is not None and (t.dtype != torch.int32 or t.shape != (C,)):
             raise ValueError(f"{name} must be int32[{C}]")
-    for t in (tiles, tile_offsets, counts):
-        if t.device != rows.device:
+    for t in (tiles, tile_offsets, counts, slot_counts):
+        if t is not None and t.device != rows.device:
             raise ValueError("all inputs must be on one device")
     if fold_tiles < 1 or max_tiles < 1 or tiles.shape[0] < 1:
         raise ValueError("fold_tiles, max_tiles and the tile count must "
                          "be positive")
 
 
+def _mask_empty_slots(enc, slot_counts):
+    """The plain versions' empty slots: rows q >= slot_counts[c] of the
+    (C, qc, S) fold get the sentinel (``None``: every slot occupied)."""
+    if slot_counts is None:
+        return enc
+    empty = (torch.arange(enc.shape[1], device=enc.device)[None, :]
+             >= slot_counts[:, None])                 # (C, qc)
+    return enc.masked_fill_(empty[:, :, None], ENC_INVALID)
+
+
 def _check_args(tables_sel, codes_tiled, tile_offsets, counts, fold_tiles,
                 max_tiles, slot_counts, n_blocks):
     """K1's checks; returns ``(col_bits, enc_bias, n_blocks)``."""
     _check_lists(tables_sel, codes_tiled, tile_offsets, counts, fold_tiles,
-                 max_tiles)
+                 max_tiles, slot_counts)
     M = tables_sel.shape[2]
     Bs_pad = codes_tiled.shape[1]
     if M != 32 * Bs_pad:
@@ -184,12 +196,6 @@ def _check_args(tables_sel, codes_tiled, tile_offsets, counts, fold_tiles,
                          f"{tuple(codes_tiled.shape)}")
     if codes_tiled.dtype != torch.uint8:
         raise TypeError("code tiles must be uint8")
-    if slot_counts is not None and (
-            slot_counts.dtype != torch.int32
-            or slot_counts.shape != tile_offsets.shape
-            or slot_counts.device != tables_sel.device):
-        raise ValueError(f"slot_counts must be int32[{tables_sel.shape[0]}] "
-                         f"on the tables' device")
     return (*fold_encoding(tables_sel.dtype, 2 * Bs_pad, max_tiles),
             _n_blocks(n_blocks, 2 * Bs_pad))
 
@@ -306,11 +312,7 @@ def scan_fold_csr_reference(tables_sel: torch.Tensor,
     tables = tables_sel.to(acc_dtype).reshape(C, qc, 16, 2 * Bs_pad)
     enc = _fold_reference(tables, codes_tiled, tile_offsets, counts,
                           fold_tiles, max_tiles, value)
-    if slot_counts is None:
-        return enc
-    empty = (torch.arange(qc, device=enc.device)[None, :]
-             >= slot_counts[:, None])                 # (C, qc)
-    return enc.masked_fill_(empty[:, :, None], ENC_INVALID)
+    return _mask_empty_slots(enc, slot_counts)
 
 
 scan_fold_csr_reference.cuda_calls = 0
@@ -358,9 +360,9 @@ def _fold_reference(rows, tiles_all, tile_offsets, counts, fold_tiles: int,
 
 
 def _check_exact_args(q_sel, vecs_tiled, tile_offsets, counts, fold_tiles,
-                      max_tiles):
+                      max_tiles, slot_counts):
     _check_lists(q_sel, vecs_tiled, tile_offsets, counts, fold_tiles,
-                 max_tiles)
+                 max_tiles, slot_counts)
     if q_sel.dtype != torch.bfloat16 or vecs_tiled.dtype != torch.bfloat16:
         raise TypeError("q_sel and vector tiles must be bfloat16")
     if vecs_tiled.shape[1] != q_sel.shape[2]:
@@ -373,7 +375,8 @@ def _check_exact_args(q_sel, vecs_tiled, tile_offsets, counts, fold_tiles,
 
 def scan_exact_csr(q_sel: torch.Tensor, vecs_tiled: torch.Tensor,
                    tile_offsets: torch.Tensor, counts: torch.Tensor, *,
-                   fold_tiles: int, max_tiles: int) -> torch.Tensor:
+                   fold_tiles: int, max_tiles: int,
+                   slot_counts: torch.Tensor | None = None) -> torch.Tensor:
     """Ragged exact-distance scan over CSR-tiled augmented vectors.
 
     q_sel: bf16[C, qc, d_aug], list c's augmented query slots
@@ -382,19 +385,32 @@ def scan_exact_csr(q_sel: torch.Tensor, vecs_tiled: torch.Tensor,
     counts: int32[C]. Returns enc int32[C, qc, S], S = fold_tiles * 128:
     entry [c, q, j] is the minimum of ``bf16_bits(max(d, 0)) << 16 |
     pos`` over list c's positions pos < min(counts[c], max_tiles * 128)
-    in fold class j, d the f32 dot product of the two augmented rows
-    summed in dimension order, or 2^31 - 1 where the class is empty.
+    in fold class j, d the dot product of the two augmented rows, or
+    2^31 - 1 where the class is empty.
+
+    ``slot_counts`` int32[C] (``None``: every slot): list c's first
+    slot_counts[c] slots are occupied; the rest are not scanned and hold
+    2^31 - 1.
+
+    The kernel adds the exact f32 products on the tensor cores in an
+    order of its own, so its fold is bit-equal to the plain version's
+    where every partial sum is exact in f32 (integer-valued inputs); on
+    real inputs a decoded distance may differ by the rounding of the f32
+    sums, within 1 bf16 ulp on the inputs chip_smoke.py holds.
 
     CUDA tensors launch the kernel (and add one to
     ``scan_exact_csr.launches``); CPU tensors run the plain version.
     """
     _check_exact_args(q_sel, vecs_tiled, tile_offsets, counts, fold_tiles,
-                      max_tiles)
+                      max_tiles, slot_counts)
     if q_sel.device.type == "cpu":
         return scan_exact_csr_reference(q_sel, vecs_tiled, tile_offsets,
                                         counts, fold_tiles=fold_tiles,
-                                        max_tiles=max_tiles)
-    _cuda_inputs("scan_exact_csr", q_sel, vecs_tiled, tile_offsets, counts)
+                                        max_tiles=max_tiles,
+                                        slot_counts=slot_counts)
+    _cuda_inputs("scan_exact_csr", q_sel, vecs_tiled, tile_offsets, counts,
+                 *([] if slot_counts is None else [slot_counts]),
+                 aligned=True)
     C, qc, d_aug = q_sel.shape
     enc = torch.empty((C, qc, fold_tiles * LANE_TILE), dtype=torch.int32,
                       device=q_sel.device)
@@ -402,6 +418,7 @@ def scan_exact_csr(q_sel: torch.Tensor, vecs_tiled: torch.Tensor,
         return enc
     _launch("scan_exact_csr", q_sel.device, q_sel.data_ptr(),
             vecs_tiled.data_ptr(), tile_offsets.data_ptr(), counts.data_ptr(),
+            None if slot_counts is None else slot_counts.data_ptr(),
             enc.data_ptr(), C, qc, d_aug, fold_tiles, max_tiles)
     scan_exact_csr.launches += 1
     return enc
@@ -413,20 +430,23 @@ scan_exact_csr.launches = 0
 def scan_exact_csr_reference(q_sel: torch.Tensor, vecs_tiled: torch.Tensor,
                              tile_offsets: torch.Tensor,
                              counts: torch.Tensor, *, fold_tiles: int,
-                             max_tiles: int) -> torch.Tensor:
+                             max_tiles: int,
+                             slot_counts: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """Plain torch version of ``scan_exact_csr`` (same arguments, same
-    result on any device).
+    result on any device, up to the kernel's summation order).
 
     Per chunk of lists it gathers ``max_tiles`` tiles densely and sums
     the products of the two augmented rows in f32 one dimension at a
-    time: a bf16 x bf16 product is exact in f32, so this is the kernel's
-    fused multiply-add chain bit for bit. Then it clamps, encodes, masks
-    positions past each list's end and min-folds tile ti into segment
-    ti mod fold_tiles. Calls on CUDA tensors add one to
+    time (each bf16 x bf16 product is exact in f32; the kernel adds the
+    same products in its tensor cores' order). Then it clamps, encodes,
+    masks positions past each list's end, min-folds tile ti into
+    segment ti mod fold_tiles and gives slots past ``slot_counts`` the
+    sentinel. Calls on CUDA tensors add one to
     ``scan_exact_csr_reference.cuda_calls``.
     """
     _check_exact_args(q_sel, vecs_tiled, tile_offsets, counts, fold_tiles,
-                      max_tiles)
+                      max_tiles, slot_counts)
     if q_sel.device.type == "cuda":
         scan_exact_csr_reference.cuda_calls += 1
 
@@ -439,8 +459,9 @@ def scan_exact_csr_reference(q_sel: torch.Tensor, vecs_tiled: torch.Tensor,
             est += q[:, :, j, None] * vecs[:, None, j, :]
         return _bf16_bits(torch.where(est > 0, est, 0.0)) << 16
 
-    return _fold_reference(q_sel.float(), vecs_tiled, tile_offsets, counts,
-                           fold_tiles, max_tiles, value)
+    enc = _fold_reference(q_sel.float(), vecs_tiled, tile_offsets, counts,
+                          fold_tiles, max_tiles, value)
+    return _mask_empty_slots(enc, slot_counts)
 
 
 scan_exact_csr_reference.cuda_calls = 0
