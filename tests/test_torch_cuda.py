@@ -26,6 +26,12 @@ The serving surface on the card: the stream and ``rescore_rows`` give
 ``query()``'s ids through K1/K2; gather mode and the 'xla' engine run
 no kernel and no plain kernel version; a warm ``device_out`` stream
 call makes no host sync, on either engine.
+
+The sharded indexes on the card, on meshes that name the one card
+several times (1 shard, 3 shards with a pad list, a 2 x 2 queries x
+shards mesh): the kernel arm (K1, K2 or K3 once per shard and round)
+against the same query over the plain versions, and a warm sharded
+``device_out`` stream call without a host sync.
 """
 
 import pytest
@@ -33,6 +39,7 @@ import torch
 
 from chip_smoke import (
     SLOT_COUNT_CASES,
+    over_plain,
     compare_estimates,
     compare_fold,
     estimate_case,
@@ -298,3 +305,113 @@ def test_exact_device_out_stream_never_syncs(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert out.device.type == "cuda" and int(dropped) == 0
     assert scan_exact_csr.launches > launches
+
+
+# ------------------------------------------------- sharded indexes
+
+SHARDED_MESHES = {"S=1": (1, None), "S=3": (3, None), "2x2": ((2, 2),
+                                                              "queries")}
+
+
+def _sharded_index(cuda, mesh_name, scan_impl="auto", bp=2):
+    """A ShardedIVF of 23 lists over logical shards of the one card (3
+    shards: 8 lists each, one of them a pad list) and 128 queries."""
+    from tinyknn_tpu_torch import FastPQ, make_clustered
+    from tinyknn_tpu_torch.parallel import ShardedIVF, make_mesh, make_mesh_2d
+    shape, query_axis = SHARDED_MESHES[mesh_name]
+    mesh = (make_mesh(devices=[cuda] * shape) if query_axis is None
+            else make_mesh_2d(shape, devices=[cuda] * 4))
+    X, qs = make_clustered(3000, 16, 128, seed=41)
+    sivf = ShardedIVF("angular", 23, FastPQ(2, device=cuda), mesh=mesh,
+                      query_axis=query_axis, scan_impl=scan_impl)
+    sivf.fit(X).build(X, n_probes=bp)
+    return sivf, torch.as_tensor(qs, device=cuda)
+
+
+@pytest.mark.parametrize("scan_impl", ["fused", "exact"])
+@pytest.mark.parametrize("mesh_name", list(SHARDED_MESHES))
+def test_sharded_kernel_arm_matches_plain_arm(cuda, mesh_name, scan_impl):
+    """A sharded query through K1 (K2) against the same query over the
+    plain version: one launch per mesh position and scan round and no
+    plain call in the kernel arm; equal ids for int8 tables, and for the
+    exact engine (decoded distances within 1 bf16 ulp) an overlap of at
+    least 0.99."""
+    import tinyknn_tpu_torch.models.ivf as ivf_module
+    sivf, qs = _sharded_index(cuda, mesh_name, scan_impl)
+    kernel, plain, name = (
+        (scan_exact_csr, scan_exact_csr_reference, "scan_exact_csr")
+        if scan_impl == "exact"
+        else (scan_fold_csr, scan_fold_csr_reference, "scan_fold_csr"))
+    sivf.queries_per_cluster = 128        # one attempt: counts are exact
+    positions = sum(len(row) for row in sivf._grid)
+    for P in (1, 3):
+        launches, plain_calls = kernel.launches, _plain_calls()
+        got, st = sivf.query(qs, k=8, n_probes=P, with_stats=True)
+        assert st["dropped_probe_pairs"] == 0
+        assert kernel.launches - launches == positions * min(P, 2)
+        assert _plain_calls() == plain_calls
+        before = plain.cuda_calls
+        want = over_plain(ivf_module, name, plain,
+                          lambda: sivf.query(qs, k=8, n_probes=P))
+        assert plain.cuda_calls - before == positions * min(P, 2)
+        if scan_impl == "fused":
+            assert torch.equal(got, want)
+        else:
+            same = [len(set(a) & set(b)) / 8
+                    for a, b in zip(got.tolist(), want.tolist())]
+            assert sum(same) / len(same) >= 0.99
+    stream = torch.stack([qs, qs])
+    out = sivf.query_stream(stream, k=8, n_probes=3)
+    assert torch.equal(out[0], got) and torch.equal(out[1], got)
+
+
+def test_sharded_fastpq_kernel_arm_matches_plain_arm(cuda):
+    """ShardedFastPQ.search launches K3 once per shard and answers like
+    the same search over the plain version (int8: bit-equal estimates)."""
+    import tinyknn_tpu_torch.ops.scan as scan_module
+    from tinyknn_tpu_torch import FastPQ, make_clustered
+    from tinyknn_tpu_torch.parallel import ShardedFastPQ, make_mesh
+    X, qs = make_clustered(3001, 16, 50, seed=42)
+    spq = ShardedFastPQ(FastPQ(2, device=cuda),
+                        mesh=make_mesh(devices=[cuda] * 3)).fit(X).build(X)
+    launches, plain_calls = estimate_scan_tiled.launches, _plain_calls()
+    got = spq.search(qs, k=7)
+    assert estimate_scan_tiled.launches - launches == 3
+    assert _plain_calls() == plain_calls
+    want = over_plain(scan_module, "estimate_scan_tiled",
+                      estimate_scan_tiled_reference,
+                      lambda: spq.search(qs, k=7))
+    assert estimate_scan_tiled_reference.cuda_calls == plain_calls[2] + 3
+    assert torch.equal(got, want)
+    assert got.device.type == "cuda"
+    assert ((got >= 0) & (got < 3001)).all()
+
+
+def test_sharded_device_out_stream_never_syncs(cuda):
+    """With the floors cached, a sharded device_out stream call waits for
+    nothing on the host: the shards' drops are added on the device."""
+    sivf, qs = _sharded_index(cuda, "2x2")
+    stream = torch.stack([qs, qs + 1e-6])
+    host = sivf.query_stream(stream, k=8, n_probes=2)  # measures the floors
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, dropped = sivf.query_stream(stream, k=8, n_probes=2,
+                                         device_out=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.device.type == "cuda" and out.dtype == torch.int32
+    assert torch.equal(out, host) and int(dropped) == 0
+
+
+def test_lloyd_step_dp_on_the_card(cuda):
+    """Four logical shards against one: the same centers (atol 1e-5; the
+    sums are atomics, so their order varies) and inertia (rtol 1e-5)."""
+    from tinyknn_tpu_torch import make_clustered
+    from tinyknn_tpu_torch.parallel import lloyd_step_dp, make_mesh
+    X, _ = make_clustered(4096, 16, 4, seed=43)
+    c4, i4 = lloyd_step_dp(X, X[:20], make_mesh(devices=[cuda] * 4))
+    c1, i1 = lloyd_step_dp(X, X[:20], make_mesh(devices=[cuda]))
+    assert c4.device.type == "cuda"
+    torch.testing.assert_close(c4, c1, atol=1e-5, rtol=0)
+    torch.testing.assert_close(i4, i1, rtol=1e-5, atol=0)

@@ -114,6 +114,37 @@ def test_reference_matches_jax_kernel(kind, W, d, qc):
                  0, max_tiles)
 
 
+def test_near_tie_rule_of_the_fold_comparison():
+    """chip_smoke's rule for K2 folds narrower than a list: a class may
+    keep another point at an equal bf16 value if, by the plain version's
+    arithmetic, that point is within 1 bf16 ulp of the class minimum (two
+    copies of one vector in one class, here); any other point fails."""
+    from chip_smoke import decode, k2_near_ties
+    q_sel, vecs, toff, counts, max_tiles = exact_inputs(
+        *exact_case(7, "random", d=12, qc=8), "cpu")
+    W = 2
+    assert int(counts[0]) > 3 * 128 and int(toff[0]) == 0
+    vecs[2] = vecs[0]          # list 0: tiles 0 and 2 share their classes
+    args, kw = (q_sel, vecs, toff, counts), dict(fold_tiles=W,
+                                                 max_tiles=max_tiles)
+    want = scan_exact_csr_reference(*args, **kw)
+    _, pos = decode(want.numpy(), True, 0, max_tiles)
+    j = int(np.nonzero((pos[0, 0] >= 0) & (pos[0, 0] < 128))[0][0])
+    twin = pos[0, 0, j] + 2 * 128
+    for moved_to, ok in ((twin, True), (twin + 1, False)):
+        got = want.clone()
+        got[0, 0, j] = (int(want[0, 0, j]) & ~0xFFFF) | int(moved_to)
+        with pytest.raises(AssertionError, match="positions differ"):
+            compare_fold(got, want, True, False, 0, max_tiles)
+        if ok:
+            compare_fold(got, want, True, False, 0, max_tiles,
+                         k2_near_ties(args, kw))
+        else:
+            with pytest.raises(AssertionError, match="positions differ"):
+                compare_fold(got, want, True, False, 0, max_tiles,
+                             k2_near_ties(args, kw))
+
+
 def test_wrapper_runs_plain_version_on_cpu():
     q_sel, vecs, toff, counts, max_tiles = exact_inputs(
         *exact_case(1, "random"), "cpu")

@@ -11,6 +11,10 @@ _PROG = """
 import sys
 import tinyknn_tpu_torch  # noqa: F401
 import tinyknn_tpu_torch.ops.kernels  # noqa: F401
+import tinyknn_tpu_torch.parallel  # noqa: F401
+import tinyknn_tpu_torch.parallel.mesh  # noqa: F401
+import tinyknn_tpu_torch.parallel.sharded_ivf  # noqa: F401
+import tinyknn_tpu_torch.parallel.sharded_pq  # noqa: F401
 import torch
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "tinyknn_tpu"))

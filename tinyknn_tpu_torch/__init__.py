@@ -11,18 +11,21 @@ compiles nothing: a kernel is built with nvcc on its first launch.
 Ported so far: FastPQ (fit, transform, tables, full-scan search), the
 single-device IVF (fit, build, ``query`` in bucket and gather modes on
 the 'fused', 'xla' and exact engines, ``rescore_rows``,
-``query_stream``, ``tune_n_probes``), ``Flat``, and reading and writing
-the npz archives. The sharded indexes are not ported yet (see
-ROADMAP.md).
+``query_stream``, ``tune_n_probes``), ``Flat``, reading and writing
+the npz archives, and the sharded indexes over a device mesh
+(``tinyknn_tpu_torch.parallel``: ``ShardedIVF``, ``ShardedFastPQ``,
+``lloyd_step_dp``; ``load_sharded_ivf``).
 """
 
 from .io import (
     ivf_from_state,
     load_ivf,
     load_pq,
+    load_sharded_ivf,
     pq_from_state,
     save_ivf,
     save_pq,
+    sharded_ivf_from_state,
 )
 from .models import IVF, FastPQ, Flat, TransformedData
 from .utils import (
@@ -43,6 +46,7 @@ __version__ = "0.1.0"
 __all__ = [
     "IVF", "FastPQ", "Flat", "TransformedData", "bottom_k", "bottom_k_2d",
     "cdist", "group_data_by_indices", "ivf_from_state", "knn_brute",
-    "knn_brute1", "load_ivf", "load_pq", "make_clustered", "pad1", "pad2",
-    "pq_from_state", "save_ivf", "save_pq", "truth_cache_path",
+    "knn_brute1", "load_ivf", "load_pq", "load_sharded_ivf", "make_clustered",
+    "pad1", "pad2", "pq_from_state", "save_ivf", "save_pq",
+    "sharded_ivf_from_state", "truth_cache_path",
 ]

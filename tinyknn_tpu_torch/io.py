@@ -7,8 +7,12 @@ writes the same keys and the same metadata fields as
 by either package serves from the other. It reads v3 and the older
 dense-grid v1/v2 archives, which are converted to the CSR layout on
 load, and it reads metadata with the JAX loader's defaults for every
-field an older writer may have left out. The sharded writer and loader
-are not ported yet (ROADMAP queue 1).
+field an older writer may have left out.
+
+A placed ``ShardedIVF`` is written as the same archive: the per-shard
+tile padding is stripped and the offsets re-based, so the file does not
+depend on the mesh and loads onto any other mesh (``load_sharded_ivf``)
+or as a single-device index (``load_ivf``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 from .models.fast_pq import FastPQ
 from .models.ivf import IVF
 from .ops.kernels import LANE_TILE
+from .parallel.sharded_ivf import ShardedIVF
 from .utils.padding import round_up
 
 FORMAT_VERSION = 3
@@ -105,19 +110,53 @@ def save_pq(path, pq: FastPQ, compress: bool = False):
           kind=np.frombuffer(b"fastpq", np.uint8), **_pq_state(pq))
 
 
+def _host(t) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def _unshard_csr(ivf: ShardedIVF):
+    """The global CSR arrays of a placed ShardedIVF (see
+    ``ShardedIVF._place``): each shard's tile padding stripped, the
+    offsets re-based, the pad lists cut and one guard tile appended."""
+    starts, stops, _, C = ivf._shard_meta
+    codes, ids, toffs, counts = [], [], [], []
+    base = 0
+    for s, (codes_s, ids_s, toff_s, counts_s) in enumerate(zip(
+            ivf.csr_codes.shards(), ivf.csr_ids.shards(),
+            ivf.tile_offsets.shards(), ivf.list_counts.shards())):
+        n_t = int(stops[s] - starts[s])
+        codes.append(_host(codes_s[:n_t]))
+        ids.append(_host(ids_s[:n_t * LANE_TILE]))
+        toffs.append(_host(toff_s) + base)
+        counts.append(_host(counts_s))
+        base += n_t
+    codes.append(np.zeros_like(codes[0][:1]))
+    ids.append(np.full(LANE_TILE, -1, np.int32))
+    return (np.concatenate(codes), np.concatenate(ids),
+            np.concatenate(toffs)[:C].astype(np.int32),
+            np.concatenate(counts)[:C].astype(np.int32))
+
+
 def save_ivf(path, ivf: IVF, compress: bool = False):
-    """Write a built IVF as a v3 archive: the keys and metadata fields
-    of ``tinyknn_tpu.io.save_ivf``, so ``tinyknn_tpu.io.load_ivf`` reads
-    it. Derived state (the exact engine's tiles, the rescore_rows copy)
-    is not stored: loaders rebuild it from (data, csr_ids).
+    """Write a built IVF, or a placed ShardedIVF, as a v3 archive: the
+    keys and metadata fields of ``tinyknn_tpu.io.save_ivf``, so
+    ``tinyknn_tpu.io.load_ivf`` reads it. Derived state (the exact
+    engine's tiles, the rescore_rows copy, a shard's raw vectors) is
+    not stored: loaders rebuild it from (data, csr_ids).
 
     ``compress`` is off by default: codes and float vectors barely
     compress, and deflate is slow at a million points."""
     if ivf.csr_codes is None:
         raise RuntimeError("save_ivf: index not built")
-
-    def host(t):
-        return t.cpu().numpy()
+    host = _host
+    if isinstance(ivf, ShardedIVF):
+        csr_codes, csr_ids, tile_offsets, list_counts = _unshard_csr(ivf)
+        active_centers = _host(ivf.active_centers)[:ivf._n_active_real]
+    else:
+        csr_codes, csr_ids = _host(ivf.csr_codes), _host(ivf.csr_ids)
+        tile_offsets = _host(ivf.tile_offsets)
+        list_counts = _host(ivf.list_counts)
+        active_centers = _host(ivf.active_centers)
 
     saver = np.savez_compressed if compress else np.savez
     saver(
@@ -136,14 +175,14 @@ def save_ivf(path, ivf: IVF, compress: bool = False):
             "rescore_rows": bool(ivf.rescore_rows),
             "scan_budget_bytes": int(ivf.scan_budget_bytes),
         }),
-        all_centers=host(ivf.all_centers),
-        active_centers=host(ivf.active_centers),
-        csr_codes=host(ivf.csr_codes),
-        csr_ids=host(ivf.csr_ids),
-        tile_offsets=host(ivf.tile_offsets),
-        list_counts=host(ivf.list_counts),
-        data=host(ivf.data),
-        **({"labels": host(ivf.labels)} if ivf.labels is not None else {}),
+        all_centers=_host(ivf.all_centers),
+        active_centers=active_centers,
+        csr_codes=csr_codes,
+        csr_ids=csr_ids,
+        tile_offsets=tile_offsets,
+        list_counts=list_counts,
+        data=_host(ivf.data),
+        **({"labels": _host(ivf.labels)} if ivf.labels is not None else {}),
         **_pq_state(ivf.pq))
 
 
@@ -223,32 +262,26 @@ def _csr_lists(state, version: int):
     return _dense_grid_to_csr(codes, list_ids, counts)
 
 
-def ivf_from_state(state: dict[str, np.ndarray], device) -> IVF:
-    """A port ``IVF`` on ``device`` from the arrays of an archive (v3, or
-    a v1/v2 dense grid; optional ``labels`` and ``pq_R`` included). It
-    computes what the JAX index computes. Metadata fields missing from
-    the archive take the JAX loader's defaults; a missing
-    ``build_probes`` is the lists' mean multiplicity, sum(list_counts)
-    / n_rows, as build() places every point in exactly build_probes
-    lists. Derived state (the exact engine's vector tiles, the
-    rescore_rows copy) is rebuilt from (data, csr_ids), as the JAX
-    loader does."""
+def _ivf_restore(state, cls, **where):
+    """An index of class ``cls`` (``IVF`` or ``ShardedIVF``; ``where``:
+    its placement arguments) holding an archive's arrays as one
+    single-device index on its ``device``, without derived state."""
     version = _format(state, _REQUIRED)
     _check_keys(state, _REQUIRED[version], _OPTIONAL[version], b"ivf")
     meta = {**_IVF_DEFAULTS, **_meta(state, "ivf_meta")}
-    device = torch.device(device)
-
-    def tensor(key, dtype):
-        return torch.as_tensor(np.asarray(state[key]), dtype=dtype,
-                               device=device)
-
-    ivf = IVF(meta["metric"], meta["n_clusters"], seed=meta["seed"],
+    ivf = cls(meta["metric"], meta["n_clusters"], seed=meta["seed"],
               kmeans_iters=meta["kmeans_iters"],
               queries_per_cluster=meta["queries_per_cluster"],
               pass1_method=meta["pass1_method"],
               scan_impl=meta["scan_impl"], fold_mult=meta["fold_mult"],
               rescore_rows=meta["rescore_rows"],
-              scan_budget_bytes=meta["scan_budget_bytes"], device=device)
+              scan_budget_bytes=meta["scan_budget_bytes"], **where)
+    device = ivf.device
+
+    def tensor(key, dtype):
+        return torch.as_tensor(np.asarray(state[key]), dtype=dtype,
+                               device=device)
+
     ivf.pq = _pq_restore(state, device)
     ivf.all_centers = tensor("all_centers", torch.float32)
     ivf.active_centers = tensor("active_centers", torch.float32)
@@ -264,11 +297,53 @@ def ivf_from_state(state: dict[str, np.ndarray], device) -> IVF:
         total = int(np.asarray(list_counts, np.int64).sum())
         ivf.build_probes = max(1, round(total / max(1, ivf.data.shape[0])))
     ivf.build_probes = int(ivf.build_probes)
+    return ivf
+
+
+def ivf_from_state(state: dict[str, np.ndarray], device,
+                   skip_derived: bool = False) -> IVF:
+    """A port ``IVF`` on ``device`` from the arrays of an archive (v3, or
+    a v1/v2 dense grid; optional ``labels`` and ``pq_R`` included). It
+    computes what the JAX index computes. Metadata fields missing from
+    the archive take the JAX loader's defaults; a missing
+    ``build_probes`` is the lists' mean multiplicity, sum(list_counts)
+    / n_rows, as build() places every point in exactly build_probes
+    lists. Derived state (the exact engine's vector tiles, the
+    rescore_rows copy) is rebuilt from (data, csr_ids), as the JAX
+    loader does, unless ``skip_derived``: the index then has neither
+    and cannot serve an exact-engine query before
+    ``set_scan_impl('exact')``."""
+    ivf = _ivf_restore(state, IVF, device=torch.device(device))
+    if skip_derived:
+        return ivf
     return ivf.set_scan_impl(ivf.scan_impl).set_rescore_rows(
         ivf.rescore_rows)
 
 
-def load_ivf(path, device) -> IVF:
+def load_ivf(path, device, skip_derived: bool = False) -> IVF:
     """``np.load`` of an IVF archive + ``ivf_from_state``."""
     with np.load(path) as z:
-        return ivf_from_state({key: z[key] for key in z.files}, device)
+        return ivf_from_state({key: z[key] for key in z.files}, device,
+                              skip_derived)
+
+
+def sharded_ivf_from_state(state: dict[str, np.ndarray], mesh=None,
+                           axis="shards", query_axis=None) -> ShardedIVF:
+    """A ``ShardedIVF`` placed over ``mesh`` (default: the visible CUDA
+    devices) from the arrays of an archive, whether a sharded or a
+    single-device index wrote it. The single-device derived state is
+    never built: placing derives each shard's own. The unsharded state
+    (data, codebooks) stays on the mesh's first device."""
+    ivf = _ivf_restore(state, ShardedIVF, mesh=mesh, axis=axis,
+                       query_axis=query_axis)
+    ivf._place()
+    return ivf
+
+
+def load_sharded_ivf(path, mesh=None, axis="shards",
+                     query_axis=None) -> ShardedIVF:
+    """``np.load`` of an IVF archive + ``sharded_ivf_from_state``: the
+    mesh need not be the one the index was saved from."""
+    with np.load(path) as z:
+        return sharded_ivf_from_state({key: z[key] for key in z.files}, mesh,
+                                      axis, query_axis)

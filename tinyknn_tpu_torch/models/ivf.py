@@ -36,7 +36,8 @@ in place of the codes, and the same selection and rescore follow.
 rescore reads by flat row and decodes ids for the winners only.
 
 All state lives on the device given at construction. The sharded
-index is not ported yet (ROADMAP queue 1).
+index (``parallel.ShardedIVF``) runs the same scan rounds once per
+shard, over the lists that shard owns.
 """
 
 from __future__ import annotations
@@ -75,6 +76,11 @@ SCAN_IMPLS = ("auto", "fused", "xla", "exact")
 
 class IVF:
     """Inverted-file ANN index with its state on ``device``."""
+
+    # ShardedIVF derives the exact engine's tiles and the raw rows per
+    # shard when it places the lists; build() then skips the
+    # single-device copies
+    _sharded = False
 
     def __init__(self, metric, n_clusters, pq=None, seed=0,
                  kmeans_iters=30, queries_per_cluster=None,
@@ -202,6 +208,8 @@ class IVF:
         self._set_lists(pack_codes_tiled(codes, csr_ids), csr_ids, toff,
                         counts)
         self.csr_vecs = self.csr_raw = None
+        if self._sharded:
+            return self
         return self.set_scan_impl(self.scan_impl).set_rescore_rows(
             self.rescore_rows)
 
@@ -213,11 +221,7 @@ class IVF:
         _check_scan_impl(scan_impl)
         if (scan_impl == "exact" and self.csr_vecs is None
                 and self.csr_ids is not None):
-            if self.max_tiles * LANE_TILE > EXACT_MAX_POSITIONS:
-                raise ValueError(
-                    f"exact mode: the longest list ({self.max_tiles} tiles) "
-                    f"exceeds the 16-bit fold position field; raise "
-                    f"n_clusters")
+            self._check_exact_fits()
             self.csr_vecs = _augment_data_csr(self.data, self.csr_ids)
         elif scan_impl != "exact":
             self.csr_vecs = None
@@ -297,32 +301,13 @@ class IVF:
                 max_tiles=self.max_tiles, exact=exact)
             dropped = 0
         else:
-            scan_impl = self._scan_engine()
-            attempts = 1 if self.queries_per_cluster else 3
-            qc_full, qc0_full = _qc_caps(self, q.shape[0], n_probes, r,
-                                         r_tail, qc, qc0)
-            for attempt in range(attempts):
-                out, dropped = self._bucket_query(
-                    q, (k, n_probes, pass_1, r, r_tail, qc, qc0), scan_impl)
-                dropped = int(dropped)
-                if attempt + 1 == attempts or dropped == 0:
-                    break
-                if attempt + 2 == attempts:  # last try: can't-drop caps
-                    qc, qc0 = qc_full, qc0_full
-                else:
-                    qc = min(round_up(4 * qc, 8), qc_full)
-                    qc0 = min(round_up(4 * qc0, 8), qc0_full)
+            out, dropped, qc, qc0 = _query_with_retries(
+                self, q, params, q.shape[0])
         out = self._map_labels(out[0] if single else out)
         if with_stats:
-            return out, {
-                "mode": mode,
-                "dropped_probe_pairs": dropped,
-                "total_probe_pairs": int(q.shape[0]) * n_probes,
-                "queries_per_cluster_cap": qc,
-                "queries_per_cluster_cap_round0": qc0,
-                "pass_1": pass_1,
-                "per_pair_candidates": (r, r_tail),
-            }
+            return out, _query_stats(
+                dropped, int(q.shape[0]) * n_probes, qc, qc0, pass_1,
+                mode=mode, per_pair_candidates=(r, r_tail))
         return out
 
     def query_stream(self, batches, k, n_probes=1, pass_1=None,
@@ -362,44 +347,58 @@ class IVF:
             raise ValueError(f"batches must be (R, Q, d), not "
                              f"{tuple(batches.shape)}")
         R, Q, _ = batches.shape
+        q_view, view = self._batch_view(Q)
         adaptive = bool(adaptive_qc) and not self.queries_per_cluster
-        params = _query_params(self, Q, k, n_probes, pass_1)
+        params = _query_params(self, q_view, k, n_probes, pass_1, **view)
         floors, key, fresh = (0, 0), None, False
         if adaptive:
             params, floors, key, fresh = _stream_adaptive_params(
-                self, batches, k, n_probes, pass_1, params)
+                self, batches, k, n_probes, pass_1, params, Q=q_view, **view)
         k, n_probes, pass_1, r, r_tail, qc, qc0 = params
         scan_impl = self._scan_engine()
-        dropped = torch.zeros((), dtype=torch.int64, device=self.device)
+        first = self._answer_device()
+        dropped = torch.zeros((), dtype=torch.int64, device=first)
         outs = []
         for b in range(R):
             out, drop = self._bucket_query(batches[b], params, scan_impl)
             outs.append(out)
             dropped = dropped + drop
         out = torch.stack(outs) if outs else torch.zeros(
-            (0, Q, k), dtype=torch.int32, device=self.device)
+            (0, Q, k), dtype=torch.int32, device=first)
         if device_out:
             return out, dropped
         dropped = int(dropped)
         if adaptive and dropped:
             _refresh_stream_floors(self, key, batches, n_probes,
                                    just_measured=fresh)
-        out = self._map_labels(out)
+        out = self._map_labels(out.to(self.device))
         if with_stats:
-            return out, {
-                "dropped_probe_pairs": dropped,
-                "total_probe_pairs": R * Q * n_probes,
-                "queries_per_cluster_cap": qc,
-                "queries_per_cluster_cap_round0": qc0,
-                "adaptive_qc_floors": floors if adaptive else None,
-                "pass_1": pass_1,
-            }
+            return out, _query_stats(
+                dropped, R * Q * n_probes, qc, qc0, pass_1,
+                adaptive_qc_floors=floors if adaptive else None)
         return out
+
+    def _batch_view(self, Q: int):
+        """``(Q, view)`` that size a batch of Q queries' capacities:
+        ``_query_params``' ``Q`` and its ``n_active``/``n_probes_max``
+        arguments. Here the whole batch over every active list; a
+        sharded index sizes them per mesh position."""
+        return Q, {}
+
+    def _answer_device(self):
+        """Where ``_bucket_query`` leaves a batch's ids and drop count."""
+        return self.device
 
     def _check_built(self):
         if self.csr_codes is None:
             raise RuntimeError(
                 "IVF index is empty: call fit(X) and build(X) before query")
+
+    def _check_exact_fits(self):
+        if self.max_tiles * LANE_TILE > EXACT_MAX_POSITIONS:
+            raise ValueError(
+                f"exact mode: the longest list ({self.max_tiles} tiles) "
+                f"exceeds the 16-bit fold position field; raise n_clusters")
 
     def _check_exact(self):
         if self.scan_impl == "exact" and self.csr_vecs is None:
@@ -605,6 +604,39 @@ def _query_params(self, Q, k, n_probes, pass_1, qc_min=0, qc0_min=0,
     return k, n_probes, pass_1, r, r_tail, qc, qc0
 
 
+def _query_with_retries(self, q, params, Q: int, **view):
+    """``query()``'s bucket-mode attempts: ``self._bucket_query`` on the
+    batch ``q``; while pairs were dropped, again at 4x the capacities and
+    last at the can't-drop caps (one attempt when ``queries_per_cluster``
+    pins them). ``Q`` and ``view`` are ``_batch_view``'s. Returns ``(ids,
+    dropped pairs, qc, qc0)`` of the last attempt."""
+    k, n_probes, pass_1, r, r_tail, qc, qc0 = params
+    scan_impl = self._scan_engine()
+    attempts = 1 if self.queries_per_cluster else 3
+    qc_full, qc0_full = _qc_caps(self, Q, n_probes, r, r_tail, qc, qc0,
+                                 n_active=view.get("n_active"))
+    for attempt in range(attempts):
+        out, dropped = self._bucket_query(
+            q, (k, n_probes, pass_1, r, r_tail, qc, qc0), scan_impl)
+        dropped = int(dropped)
+        if attempt + 1 == attempts or dropped == 0:
+            break
+        if attempt + 2 == attempts:  # last try: can't-drop caps
+            qc, qc0 = qc_full, qc0_full
+        else:
+            qc = min(round_up(4 * qc, 8), qc_full)
+            qc0 = min(round_up(4 * qc0, 8), qc0_full)
+    return out, dropped, qc, qc0
+
+
+def _query_stats(dropped: int, pairs: int, qc: int, qc0: int, pass_1: int,
+                 **more) -> dict:
+    """The diagnostics dict of ``query`` and ``query_stream``."""
+    return {"dropped_probe_pairs": dropped, "total_probe_pairs": pairs,
+            "queries_per_cluster_cap": qc,
+            "queries_per_cluster_cap_round0": qc0, "pass_1": pass_1, **more}
+
+
 def _qc_caps(self, Q, n_probes, r, r_tail, qc, qc0, n_active=None):
     """Can't-drop bucket capacities for the drop-retry escalation,
     bounded by ``scan_budget_bytes`` of (C, qc, S) int32 fold grid.
@@ -738,7 +770,12 @@ def _bucket_pairs(probe_sub, C: int, qc: int):
     ``(qgrid int64[C, qc] query per slot (-1 empty), pair_idx
     int64[Q, Ps] each pair's row of the (C * qc) grid, in_slot
     bool[Q, Ps], dropped)``: pairs past a full bucket are dropped and
-    counted."""
+    counted.
+
+    A list id >= C is a sentinel (the sharded index sends every pair
+    whose list another shard owns to id C): such a pair takes no slot,
+    is never counted as dropped, and its ``pair_idx`` is clamped to the
+    grid's last row, so what it reads there is the caller's to mask."""
     Q, Ps = probe_sub.shape
     dev = probe_sub.device
     pairs = probe_sub.reshape(-1)
@@ -752,13 +789,17 @@ def _bucket_pairs(probe_sub, C: int, qc: int):
     run_start = torch.cummax(torch.where(is_start, pos, 0), dim=0).values
     slot = pos - run_start                            # position within run
     in_cap = slot < qc
-    # scatter query ids into the (C, qc) grid; overflowing pairs land in
-    # a spare row C that is cut off (the JAX version drops them)
+    real = sorted_c < C
+    # scatter query ids into the (C, qc) grid; overflowing and sentinel
+    # pairs land in a spare row C that is cut off (the JAX version drops
+    # them)
     qgrid = torch.full((C + 1, qc), -1, dtype=torch.int64, device=dev)
-    qgrid[torch.where(in_cap, sorted_c, C), slot.clamp(max=qc - 1)] = sorted_q
+    qgrid[torch.where(in_cap & real, sorted_c, C),
+          slot.clamp(max=qc - 1)] = sorted_q
     slot_orig = torch.empty_like(slot).scatter_(0, order, slot).reshape(Q, Ps)
-    pair_idx = probe_sub * qc + slot_orig.clamp(max=qc - 1)
-    return qgrid[:C], pair_idx, slot_orig < qc, (~in_cap).sum()
+    pair_idx = (probe_sub * qc + slot_orig.clamp(max=qc - 1)).clamp(
+        max=C * qc - 1)
+    return qgrid[:C], pair_idx, slot_orig < qc, (~in_cap & real).sum()
 
 
 def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
@@ -768,7 +809,9 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
     """One bucketed scan round over a probe subset.
 
     probe_sub: (Q, Ps) list ids. Scans every list once for all its
-    bucketed queries and hands each pair its share.
+    bucketed queries and hands each pair its share. An id equal to the
+    list count is a sentinel (see ``_bucket_pairs``): nothing is scanned
+    for it and the caller masks its row.
 
     'fused' runs ``scan_fold_csr`` ('exact': ``scan_exact_csr``, with
     tables_flat the augmented queries and csr_codes the vector tiles)
@@ -901,19 +944,9 @@ def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
     Q, d = q.shape
     P = n_probes
     q = _normalize(q, metric)
-    B = None                                          # real table blocks
-    if scan_impl == "exact":
-        tables_flat = _augment_queries(q)
-    else:
-        tables = _build_tables(q, pq.center_blocks, pq.R,
-                               pq.dims_per_block, True, pq.table_dtype).tables
-        B = tables.shape[1]
-        tables_flat = tables.reshape(Q, B * 16)
-        if scan_impl == "fused":
-            tables_flat = permute_tables_csr(tables_flat, B)
-            if tables_flat.dtype == torch.float32:
-                # the float fold encodes bf16 value bits; pre-round
-                tables_flat = tables_flat.to(torch.bfloat16)
+    tables_flat, B = _scan_tables(q, pq.center_blocks, pq.R,
+                                  pq.dims_per_block, pq.table_dtype,
+                                  scan_impl)
 
     # -- probe selection, exact fp32
     probe_sel = _probe_select(q, active_centers, P)   # (Q, P)
@@ -958,7 +991,26 @@ def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
     d2 = torch.where(enc_sel < ENC_INVALID, d2, float("inf"))
     return _final_topk(
         d2, lambda pos: csr_ids[torch.gather(rows_sel, 1, pos)], k, f,
-        p1), dropped
+        p1)[0], dropped
+
+
+def _scan_tables(q, center_blocks, R, dpb: int, table_dtype: str,
+                 scan_impl: str):
+    """Stage 1 for the normalized queries (Q, d): ``(tables_flat, real
+    table blocks)`` as ``_bucket_scan_round`` takes them. 'exact': the
+    augmented bf16 queries (no blocks: None); 'xla': block-major tables
+    (Q, 16 B); 'fused': the same in K1's layout, f32 tables rounded to
+    bf16 (the float fold encodes bf16 value bits)."""
+    if scan_impl == "exact":
+        return _augment_queries(q), None
+    tables = _build_tables(q, center_blocks, R, dpb, True, table_dtype).tables
+    B = tables.shape[1]
+    tables_flat = tables.reshape(q.shape[0], B * 16)
+    if scan_impl == "fused":
+        tables_flat = permute_tables_csr(tables_flat, B)
+        if tables_flat.dtype == torch.float32:
+            tables_flat = tables_flat.to(torch.bfloat16)
+    return tables_flat, B
 
 
 def _rescore_topk(cand, data, q, k: int, f: int, p1: int):
@@ -968,12 +1020,12 @@ def _rescore_topk(cand, data, q, k: int, f: int, p1: int):
     d2 = torch.einsum("qrd,qrd->qr", diff, diff)
     d2 = torch.where(cand >= 0, d2, float("inf"))
     return _final_topk(d2, lambda pos: torch.gather(cand, 1, pos), k, f,
-                       p1)
+                       p1)[0]
 
 
 def _final_topk(d2, ids_at, k: int, f: int, p1: int):
-    """The top k of rescored candidates (Q, p1), -1 where none is valid.
-    ``ids_at(pos)`` gives the ids of candidate positions; it is called
+    """The top k of rescored candidates (Q, p1) as ``(ids, d2)``, ids -1
+    (and d2 +inf) where none is valid. ``ids_at(pos)`` gives the ids of candidate positions; it is called
     on the k * f sliver when f > 1 (build-spill duplicates are removed
     there) and on the k winners otherwise, so ids decode late."""
     if f > 1:
@@ -986,7 +1038,7 @@ def _final_topk(d2, ids_at, k: int, f: int, p1: int):
     else:
         out_d2, best = smallest_k(d2, k)
         out = ids_at(best)
-    return torch.where(torch.isfinite(out_d2), out, -1)
+    return torch.where(torch.isfinite(out_d2), out, -1), out_d2
 
 
 # --------------------------------------------------------- gather mode
