@@ -84,7 +84,27 @@ In order, and stopping at the first failure with a non-zero exit:
    per shard, its first call bit-equal to the plain version and timed);
    ``lloyd_step_dp`` over 4 shards against 1; and ``save_ivf`` of the
    placed index read back by ``load_ivf`` (identical ids). With more
-   than one card visible it also runs one shard per card.
+   than one card visible it also runs one shard per card;
+9. examples: each module of ``tinyknn_tpu_torch.examples`` through its
+   ``main``, as a user runs it, at its own full-width defaults or on the
+   phase-4 archive and the phase-5 build_probes=2 archive (the GloVe
+   shape), with the counts reset before each: ``example`` (K3, its call
+   bit-equal to the plain version, rank median <= 3 and q90 <= 25),
+   ``ivf_example`` (K1 in every query() call at n_probes 1 to 10, round
+   0 at P=1 and the tail round at P=2 held, recall at P=10 no lower than
+   at P=1), ``multiprobes`` (K1 in every query() call), ``flat_baseline``
+   (no kernel, recall 1.0 on 1,000 queries against an f64 brute force),
+   ``bench`` on ``clustered-1183514-100`` reading the phase-4 archive and
+   the checked-in truth from its cache directory (P=1 recall within
+   0.001 of phase 4's), ``serving_pipeline`` on its small default and
+   with ``--glove`` (pooled blocks equal, the warm ``device_out`` calls
+   under ``set_sync_debug_mode("error")``), ``latency`` at Q = 1 to 256
+   (gather launches no K1, bucket does; per-call medians printed),
+   ``stream_guidance`` (no dropped pair under the adaptive default),
+   ``p1_frontier`` at pass_1 21 and 84 and ``exact_frontier`` at P = 1
+   and 2 (recall within 0.001 of phases 4 and 5; the first K2 call held),
+   ``coverage_ceiling`` (the ceiling at P=1 no lower than any recall
+   measured there) and ``sift_convert``.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; it fails if its kernel did not launch (gather mode,
@@ -179,6 +199,13 @@ NO_LIBRARY = {
     "scan_exact_csr": "no single PyTorch call computes the fold; "
                       "torch.bmm gives the products only",
 }
+# the examples (phase 9): a recall an example measures on the phase-4 or
+# phase-5 archive may differ from that phase's by this much; latency's
+# batch sizes (gather against bucket) and its repeats (10 calls a point,
+# stream lengths 4 and 12, against the script's 30 and 16 / 48)
+EXAMPLE_SLACK = 0.001
+LATENCY_BATCHES = (1, 8, 32, 64, 128, 256)
+LATENCY_REPEATS = ("--calls", "10", "--stream-reps", "4", "12")
 
 
 def fold_case(seed: int, kind: str, n: int = 900, B: int = 8, C: int = 4,
@@ -2016,6 +2043,334 @@ def sharded_path(ivf, archive, archive_bp2, queries, truth, exact_recall,
     return summary, launches, err, timed_calls
 
 
+def record_calls(cls, name: str, kernel, log: list, before=None):
+    """Wrap ``cls.<name>`` (a method) so that each call appends (its
+    keyword arguments, the launches of ``kernel`` during it) to ``log``;
+    ``before(kw)``, if given, runs first. Returns a function that undoes
+    the wrap."""
+    original = getattr(cls, name)
+
+    def wrapped(self, *args, **kw):
+        if before is not None:
+            before(kw)
+        n0 = kernel.launches
+        out = original(self, *args, **kw)
+        log.append((kw, kernel.launches - n0))
+        return out
+
+    setattr(cls, name, wrapped)
+    return lambda: setattr(cls, name, original)
+
+
+def run_example(name: str, argv: list, card: str):
+    """``tinyknn_tpu_torch.examples.<name>.main(argv)`` with the launch
+    counts set to 0 just before and read just after (which fails if a
+    plain version ran on a CUDA tensor). Returns (result, launches,
+    seconds)."""
+    import importlib
+    module = importlib.import_module(f"tinyknn_tpu_torch.examples.{name}")
+    print(f"example {name} {' '.join(argv)}:", flush=True)
+    reset_counts()
+    out, seconds = timed(lambda: module.main(argv))
+    launches = read_counts(f"example {name}")
+    print(f"  example {name}: {seconds:.2f} s {card}")
+    return out, launches, seconds
+
+
+def need_launched(name: str, launches: dict, *kernels):
+    for kname in kernels:
+        if not launches[kname]:
+            raise AssertionError(f"example {name} did not launch {kname}")
+
+
+def near(name: str, label: str, got: float, want: float):
+    print(f"  {name} {label}: recall10@10 {got:.4f} against {want:.4f}")
+    if abs(got - want) > EXAMPLE_SLACK:
+        raise AssertionError(f"example {name} {label}: recall {got:.4f} "
+                             f"differs from {want:.4f} by more than "
+                             f"{EXAMPLE_SLACK}")
+
+
+def examples_path(tmp: Path, archive: Path, archive_bp2: Path, pq_sum: dict,
+                  exact_sum: dict, card: str):
+    """Phase 9: the user examples (``tinyknn_tpu_torch.examples``), each
+    through its ``main`` as a user runs it: at its own full-width
+    defaults, or on the phase-4 archive (build_probes=1) and the phase-5
+    build_probes=2 archive, the GloVe shape. Returns (summary, {kernel:
+    {example: launches}}, {kernel: max value error})."""
+    import os
+
+    import torch
+    import tinyknn_tpu_torch.models.ivf as ivf_module
+    import tinyknn_tpu_torch.ops.scan as scan_module
+    from tinyknn_tpu_torch import IVF
+    from tinyknn_tpu_torch.examples import _glove
+    from tinyknn_tpu_torch.ops import kernels as k
+    t_start = time.perf_counter()
+    summary, err = {}, {"scan_fold_csr": 0.0, "scan_exact_csr": 0.0,
+                        "estimate_scan_tiled": 0.0}
+    launched = {kname: {} for kname in err}
+
+    def keep(name, launches):
+        for kname, n in launches.items():
+            if n:
+                launched[kname][name] = n
+
+    recall_pq = {q["pass_1"]: q["recall"] for q in pq_sum["queries"]
+                 if q["table_dtype"] == "int8"}
+    # bench's cache directory: the phase-4 archive and the checked-in f64
+    # truth under the names bench reads (the truth is checked in as trus64_)
+    cache = tmp / "examples"
+    cache.mkdir()
+    glove_index = str(cache / _glove.index_name(1))
+    os.symlink(archive, glove_index)
+    os.symlink(TRUTH, cache / os.path.basename(_glove.truth_file()))
+    c = ["--cache-dir", str(cache)]
+    # the sweeps' repeats are cut, never their widths: the stream examples
+    # time R = 2 and 7 (phase 4b's streams)
+    reps = ["--reps", *map(str, STREAM_REPS)]
+
+    # -- example: the reference's full scan (K3), the phase-6 data
+    k3_calls = {}
+    undo = capture_first(scan_module, "estimate_scan_tiled", k3_calls)
+    np.random.seed(FULL_SCAN["seed"])
+    try:
+        out, launches, secs = run_example("example", [], card)
+    finally:
+        undo()
+    keep("example", launches)
+    need_launched("example", launches, "estimate_scan_tiled")
+    (args, kw), = k3_calls.values()
+    e = compare_estimates(k.estimate_scan_tiled(*args, **kw),
+                          k.estimate_scan_tiled_reference(*args, **kw), False)
+    err["estimate_scan_tiled"] = e
+    med, q90 = out["median"], out["quantiles"][0.9]
+    print(f"  example: K3 call held, bit-equal; true-NN rank {med} / {q90}")
+    if med > FULL_SCAN_GATES[0] or q90 > FULL_SCAN_GATES[1]:
+        raise AssertionError(f"example: true-NN rank {med} / {q90} above "
+                             f"{FULL_SCAN_GATES[:2]}")
+    summary["example"] = dict(rank_median=med, rank_q90=q90, qps=out["qps"],
+                              seconds=secs)
+
+    # -- ivf_example: K1 at every n_probes, the P=2 tail round held
+    state, per_query, k1_calls = {"P": 0, "i": 0}, [], {}
+
+    def new_query(kw):
+        state["P"], state["i"] = kw.get("n_probes", 1), 0
+
+    def by_query(args, kw):
+        state["i"] += 1
+        return state["P"], state["i"] - 1
+
+    undo_q = record_calls(IVF, "query", k.scan_fold_csr, per_query, new_query)
+    undo_k = capture_first(ivf_module, "scan_fold_csr", k1_calls, by_query)
+    try:
+        out, launches, secs = run_example("ivf_example", [], card)
+    finally:
+        undo_k()
+        undo_q()
+    keep("ivf_example", launches)
+    by_p = {}
+    for kw, n in per_query:
+        by_p.setdefault(kw["n_probes"], []).append(n)
+    print(f"  ivf_example: K1 launches per query() call by n_probes {by_p}")
+    if sorted(by_p) != list(range(1, 11)) or not all(
+            n for ns in by_p.values() for n in ns):
+        raise AssertionError(f"ivf_example: K1 did not launch in every "
+                             f"query() call: {by_p}")
+    held = {key: k1_calls[key] for key in ((1, 0), (2, 1))}
+    err["scan_fold_csr"] = hold_captured("ivf_example round 0 at P=1 and "
+                                         "the tail round at P=2", held)
+    rows = out["rows"]
+    if rows[-1]["recall"] < rows[0]["recall"]:
+        raise AssertionError("ivf_example: recall at P=10 below P=1")
+    summary["ivf_example"] = dict(rows=rows, seconds=secs)
+
+    # -- multiprobes: one index per build_probes, K1 in every query
+    per_query = []
+    undo_q = record_calls(IVF, "query", k.scan_fold_csr, per_query)
+    try:
+        out, launches, secs = run_example("multiprobes", [], card)
+    finally:
+        undo_q()
+    keep("multiprobes", launches)
+    grid = out["recall"]
+    if not per_query or not all(n for _, n in per_query):
+        raise AssertionError("multiprobes: a query() call launched no K1")
+    if grid[-1][-1] < grid[0][0]:
+        raise AssertionError("multiprobes: recall at (8, 8) below (1, 1)")
+    summary["multiprobes"] = dict(recall=grid, seconds=secs)
+
+    # -- flat_baseline: exact, no kernel
+    out, launches, secs = run_example("flat_baseline", [], card)
+    if any(launches.values()):
+        raise AssertionError("flat_baseline launched a kernel")
+    from tinyknn_tpu_torch.examples.flat_baseline import dataset
+    X, qs = dataset("random-100000-100", 10000)
+    n_check = 1000
+    x64 = torch.nn.functional.normalize(
+        torch.as_tensor(X, dtype=torch.float64, device="cuda"), dim=1)
+    q64 = torch.nn.functional.normalize(
+        torch.as_tensor(qs[:n_check], dtype=torch.float64, device="cuda"),
+        dim=1)
+    truth64 = (q64 @ x64.T).topk(10, dim=1).indices
+    rec = recall_at_10(torch.as_tensor(out["ids"][:n_check]),
+                       truth64.cpu().numpy())
+    del x64, q64, truth64
+    print(f"  flat_baseline: recall10@10 {rec:.4f} on {n_check} queries "
+          f"against an f64 brute force; {out['qps']:.0f} QPS {card}")
+    if rec != 1.0:
+        raise AssertionError(f"flat_baseline recall {rec} != 1.0")
+    summary["flat_baseline"] = dict(recall=rec, qps=out["qps"], seconds=secs)
+
+    # -- bench at the GloVe shape on the cached phase-4 index (K1)
+    out, launches, secs = run_example(
+        "bench", ["clustered-1183514-100", "--metric", "angular",
+                  "--n-queries", "10000", "--max-build-probes", "2", *c],
+        card)
+    keep("bench", launches)
+    need_launched("bench", launches, "scan_fold_csr")
+    build, = out["builds"]
+    first = build["points"][0]
+    if (first["n_probes"], first["pass_1"]) != (1, 84):
+        raise AssertionError(f"bench's first point is {first}")
+    near("bench", "P=1 pass_1=84 vs phase 4", first["recall"], recall_pq[84])
+    summary["bench"] = dict(points=build["points"], auc=build["auc"],
+                            seconds=secs)
+
+    # -- serving_pipeline, small default shape and --glove: the warm
+    # device_out calls (floors cached) run under sync debug mode "error"
+    for label, argv in (("small", []), ("glove", ["--glove", *c])):
+        seen, strict = set(), [0]
+        original = IVF.query_stream
+
+        def query_stream(self, batches, *a, **kw):
+            key = (batches.shape[1], kw.get("n_probes", 1))
+            if not kw.get("device_out") or key not in seen:
+                seen.add(key)
+                return original(self, batches, *a, **kw)
+            strict[0] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return original(self, batches, *a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        IVF.query_stream = query_stream
+        try:
+            out, launches, secs = run_example("serving_pipeline", argv, card)
+        finally:
+            IVF.query_stream = original
+        keep(f"serving_pipeline {label}", launches)
+        need_launched("serving_pipeline", launches, "scan_fold_csr")
+        print(f"  serving_pipeline {label}: pooled blocks equal "
+              f"{out['pooled_equal']}; {strict[0]} warm device_out calls "
+              f"under set_sync_debug_mode('error')")
+        if not out["pooled_equal"] or not strict[0]:
+            raise AssertionError(f"serving_pipeline {label}: {out}")
+        summary[f"serving_pipeline_{label}"] = dict(
+            device_out_ms=out["device_out_s"] * 1e3,
+            host_hop_ms=out["host_hop_s"] * 1e3, seconds=secs)
+
+    # -- latency: gather (no kernel) against bucket (K1) per call
+    per_query = []
+    undo_q = record_calls(IVF, "query", k.scan_fold_csr, per_query)
+    try:
+        out, launches, secs = run_example(
+            "latency", ["--index", glove_index, "--batch",
+                        *map(str, LATENCY_BATCHES), *LATENCY_REPEATS], card)
+    finally:
+        undo_q()
+    keep("latency", launches)
+    by_mode = {}
+    for kw, n in per_query:
+        by_mode.setdefault(kw["mode"], []).append(n)
+    if any(by_mode["gather"]) or not all(by_mode["bucket"]):
+        raise AssertionError(f"latency: K1 launches by mode "
+                             f"{ {m: sum(v) for m, v in by_mode.items()} }")
+    print(f"  latency: gather launched no K1 in {len(by_mode['gather'])} "
+          f"calls, bucket launched K1 in all {len(by_mode['bucket'])}")
+    summary["latency"] = dict(rows=out["rows"], seconds=secs)
+
+    # -- stream_guidance at one P: no drop under the adaptive default
+    out, launches, secs = run_example(
+        "stream_guidance", ["--index", glove_index, "--probes", "3", *reps,
+                            *c],
+        card)
+    keep("stream_guidance", launches)
+    need_launched("stream_guidance", launches, "scan_fold_csr")
+    auto = out["rows"][0]
+    if auto["qc"] != "auto" or auto["dropped"]:
+        raise AssertionError(f"stream_guidance: {auto}")
+    summary["stream_guidance"] = dict(rows=out["rows"], seconds=secs)
+
+    # -- p1_frontier: recall of phase 4 at pass_1 21 and 84
+    out, launches, secs = run_example(
+        "p1_frontier", ["--index", glove_index, "--pass1", "21", "84", *reps,
+                        *c],
+        card)
+    keep("p1_frontier", launches)
+    need_launched("p1_frontier", launches, "scan_fold_csr")
+    for row in out["rows"]:
+        near("p1_frontier", f"pass_1={row['pass_1']} rr={row['rescore_rows']}"
+             " vs phase 4", row["recall"], recall_pq[row["pass_1"]])
+    summary["p1_frontier"] = dict(rows=out["rows"], seconds=secs)
+
+    # -- exact_frontier on the build_probes=2 archive (K2), its first K2
+    # call held
+    k2_calls = {}
+    undo = capture_first(ivf_module, "scan_exact_csr", k2_calls)
+    try:
+        out, launches, secs = run_example(
+            "exact_frontier", ["--index", str(archive_bp2), "--probes", "1",
+                               "2", *reps, *c], card)
+    finally:
+        undo()
+    keep("exact_frontier", launches)
+    need_launched("exact_frontier", launches, "scan_exact_csr")
+    err["scan_exact_csr"] = hold_captured("exact_frontier", k2_calls, True)
+    exact_p = {q["n_probes"]: q["recall"] for q in exact_sum["queries"][1:]}
+    for row in out["rows"]:
+        near("exact_frontier", f"P={row['n_probes']} vs phase 5",
+             row["recall"], exact_p[row["n_probes"]])
+    summary["exact_frontier"] = dict(rows=out["rows"], seconds=secs)
+
+    # -- coverage_ceiling (NumPy): above every recall measured at P=1
+    out, launches, secs = run_example(
+        "coverage_ceiling", ["--index", glove_index, "--probes", "1", *c],
+        card)
+    if any(launches.values()):
+        raise AssertionError("coverage_ceiling launched a kernel")
+    ceiling = out["rows"][0]
+    measured = max([q["recall"] for q in pq_sum["queries"]]
+                   + [exact_sum["queries"][0]["recall"]])
+    print(f"  coverage_ceiling P=1: membership {ceiling['membership']:.4f}, "
+          f"union brute force {ceiling['recall']:.4f} >= measured "
+          f"{measured:.4f}")
+    # a recall is a whole number of neighbours out of 10 x 10,000; the two
+    # sides sum it in different orders, so an equal one may differ in the
+    # last bit: half a neighbour of slack
+    if min(ceiling["membership"], ceiling["recall"]) < measured - 0.5e-5:
+        raise AssertionError("coverage_ceiling below a measured recall")
+    summary["coverage_ceiling"] = dict(rows=out["rows"], seconds=secs)
+
+    # -- sift_convert on a file this run writes
+    mat = np.random.default_rng(0).standard_normal((1000, 128)).astype(
+        np.float32)
+    records = np.empty((1000, 129), np.int32)
+    records[:, 0] = 128
+    records[:, 1:] = mat.view(np.int32)
+    records.tofile(cache / "sift_base.fvecs")
+    run_example("sift_convert", [str(cache / "sift_base.fvecs"),
+                                 str(cache / "sift.npy")], card)
+    if not np.array_equal(np.load(cache / "sift.npy"), mat):
+        raise AssertionError("sift_convert changed the vectors")
+
+    summary["seconds"] = time.perf_counter() - t_start
+    print(f"  examples path: {summary['seconds']:.1f} s {card}")
+    return summary, launched, err
+
+
 def first_timed(calls: dict, name: str, dtype, qc=None):
     """The reading of the first timed shape of ``dtype`` (and ``qc``
     slots, unless None) among a path's ``by_shape`` calls."""
@@ -2039,12 +2394,13 @@ def main() -> int:
 
 def run(tmp: Path) -> int:
     """Every phase in order; ``tmp`` holds the archives that phases 4b
-    and 5 write for the sharded path."""
+    and 5 write for the sharded path and the examples."""
     import torch
     from tinyknn_tpu_torch import IVF, FastPQ, make_clustered, save_ivf
     from tinyknn_tpu_torch.ops import _build
     from tinyknn_tpu_torch.utils.bruteforce import fp32_matmuls
 
+    t_run = time.perf_counter()
     # -- 1. device
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -2119,15 +2475,23 @@ def run(tmp: Path) -> int:
         err[kname] = max(err[kname], e)
     del ivf
 
+    # -- 9. the user examples, each through its main
+    examples_sum, examples_launches, e9 = examples_path(
+        tmp, archive, archive_bp2, pq_sum, exact_sum, card)
+    for kname, e in e9.items():
+        err[kname] = max(err[kname], e)
+
     r0 = first_timed(k1_calls, "K1", torch.int8, 32)
     retry = first_timed(k1_calls, "K1", torch.int8, 128)
     bf = first_timed(k1_calls, "K1", torch.bfloat16)
     e_r0 = first_timed(k2_calls, "K2", torch.bfloat16, 32)
     e_retry = first_timed(k2_calls, "K2", torch.bfloat16, 128)
+    print(f"all phases: {time.perf_counter() - t_run:.1f} s {card}")
     print(json.dumps({"pq_path": pq_sum, "serving_path": serving_sum,
                       "exact_path": exact_sum,
                       "full_scan": fs_sum, "k3_real_size": k3_sum,
-                      "sharded_path": sharded_sum, "card": smi}))
+                      "sharded_path": sharded_sum,
+                      "examples_path": examples_sum, "card": smi}))
     print(smi)
     rows = {
         "scan_fold_csr": dict(
@@ -2185,7 +2549,8 @@ def run(tmp: Path) -> int:
         "name": kname, "route": "cuda",
         "source": f"tinyknn_tpu_torch/csrc/{kname}.cu",
         "replaces": replaces, "launches": rows[kname].pop("launches"),
-        "max_abs_err": err[kname], **rows[kname]}
+        "max_abs_err": err[kname], **rows[kname],
+        "examples_launches": examples_launches[kname]}
         for kname, _, _, replaces in kernel_table()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

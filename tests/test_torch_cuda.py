@@ -27,6 +27,12 @@ The serving surface on the card: the stream and ``rescore_rows`` give
 no kernel and no plain kernel version; a warm ``device_out`` stream
 call makes no host sync, on either engine.
 
+The rest of the surface on the card: ``estimate_scan(backend="pallas")``
+launches K3 and equals 'xla' bit for bit on int8 tables, the saturating
+oracle equals its CPU run, ``knn_brute`` on NumPy input runs on the
+card, ``utils.block`` waits for it, and an example's ``main`` at a toy
+size launches its kernel.
+
 The sharded indexes on the card, on meshes that name the one card
 several times (1 shard, 3 shards with a pad list, a 2 x 2 queries x
 shards mesh): the kernel arm (K1, K2 or K3 once per shard and round)
@@ -415,3 +421,48 @@ def test_lloyd_step_dp_on_the_card(cuda):
     assert c4.device.type == "cuda"
     torch.testing.assert_close(c4, c1, atol=1e-5, rtol=0)
     torch.testing.assert_close(i4, i1, rtol=1e-5, atol=0)
+
+
+def test_scan_backends_on_the_card(cuda):
+    import numpy as np
+    from tinyknn_tpu_torch import ops
+    rng = np.random.default_rng(5)
+    codes = torch.as_tensor(rng.integers(0, 16, (700, 10), dtype=np.uint8))
+    tables = torch.as_tensor(rng.integers(-128, 128, (9, 10, 16)).astype(
+        np.int8))
+    c, t = codes.to(cuda), tables.to(cuda)
+    n0 = estimate_scan_tiled.launches
+    got = ops.estimate_scan(c, t, backend="pallas")
+    assert estimate_scan_tiled.launches == n0 + 1
+    assert torch.equal(got, ops.estimate_scan(c, t, backend="xla"))
+    u8 = tables.view(torch.uint8)
+    for signed, lanes in ((True, 1), (False, 2)):
+        assert torch.equal(
+            ops.estimate_scan_saturating(c, u8.to(cuda), signed, lanes).cpu(),
+            ops.estimate_scan_saturating(codes, u8, signed, lanes))
+
+
+def test_knn_brute_numpy_runs_on_the_card(cuda):
+    import numpy as np
+    from tinyknn_tpu_torch import utils
+    rng = np.random.default_rng(6)
+    X = rng.standard_normal((50, 8)).astype(np.float32)
+    Y = rng.standard_normal((900, 8)).astype(np.float32)
+    ids = utils.block(utils.knn_brute(X, Y, 10))
+    assert ids.device.type == "cuda"
+    want = utils.knn_brute(X, Y, 10, device="cpu").numpy()
+
+    def d2(rows):    # each query's sorted distances to its ids (ties may swap)
+        return np.sort(((Y[rows] - X[:, None]) ** 2).sum(-1), axis=1)
+
+    np.testing.assert_allclose(d2(ids.cpu().numpy()), d2(want), rtol=1e-5)
+
+
+def test_an_example_launches_its_kernel(cuda):
+    from tinyknn_tpu_torch.examples import ivf_example
+    n0 = scan_fold_csr.launches
+    rows = ivf_example.main(["--n", "3000", "--d", "32", "--n-queries",
+                             "200", "--n-clusters", "30", "--max-probes",
+                             "2"])["rows"]
+    assert scan_fold_csr.launches > n0
+    assert [r["n_probes"] for r in rows] == [1, 2]

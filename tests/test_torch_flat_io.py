@@ -387,7 +387,7 @@ def test_cdist_matches_jax():
     rng = np.random.default_rng(2)
     X = rng.standard_normal((40, 9)).astype(np.float32)
     Y = rng.standard_normal((30, 9)).astype(np.float32)
-    got = bruteforce.cdist(X, Y, chunk=7)
+    got = bruteforce.cdist(X, Y, chunk=7, device="cpu")
     assert got.dtype == torch.float32 and tuple(got.shape) == (40, 30)
     np.testing.assert_allclose(got.numpy(), np.asarray(jax_bf.cdist(X, Y)),
                                rtol=1e-5, atol=1e-5)
@@ -411,8 +411,9 @@ def test_knn_brute1_matches_jax(k):
     rng = np.random.default_rng(k)
     Y = rng.integers(-3, 4, size=(40, 5)).astype(np.float32)   # ties
     x = rng.integers(-3, 4, size=5).astype(np.float32)
-    np.testing.assert_array_equal(bruteforce.knn_brute1(x, Y, k).numpy(),
-                                  np.asarray(jax_bf.knn_brute1(x, Y, k)))
+    np.testing.assert_array_equal(
+        bruteforce.knn_brute1(x, Y, k, device="cpu").numpy(),
+        np.asarray(jax_bf.knn_brute1(x, Y, k)))
 
 
 @pytest.mark.parametrize("n, c, k", [(50, 1, 6), (80, 3, 10), (5, 2, 9)])

@@ -80,14 +80,17 @@ def test_dispatcher_matches_xla(kind, packed, n, b):
 
 
 def test_dispatcher_rejects_unknown_backend():
-    # backend is FastPQ's stored setting, kept for the JAX archives and
-    # checked there; the dispatcher routes by device and takes none
+    # the JAX package's backend names: FastPQ stores one (kept for the
+    # JAX archives), the dispatcher takes one; 'pallas' is the kernel
+    # route and refuses CPU tensors rather than fall back
     with pytest.raises(ValueError):
         FastPQ(backend="cuda", device="cpu")
     codes, tables = estimate_case(0, "int8", n=20)
-    with pytest.raises(TypeError):
-        estimate_scan(torch.as_tensor(codes), torch.as_tensor(tables),
-                      backend="pallas")
+    c, t = torch.as_tensor(codes), torch.as_tensor(tables)
+    with pytest.raises(ValueError, match="backend"):
+        estimate_scan(c, t, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        estimate_scan(c, t, backend="pallas")
 
 
 def test_wrapper_runs_plain_version_on_cpu_and_checks_inputs():

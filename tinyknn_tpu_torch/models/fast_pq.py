@@ -27,12 +27,11 @@ from ..ops.quantization import (
     quantize_tables_unsigned,
     tables_bf16,
 )
-from ..ops.scan import estimate_scan
+from ..ops.scan import BACKENDS, estimate_scan
 from ..ops.topk import smallest_k
 from ..utils.bruteforce import fp32_matmuls
 from ..utils.padding import pad2, round_up
 
-BACKENDS = ("auto", "xla", "pallas")  # the JAX package's scan backends
 ROW_PAD = 8       # row alignment of the code matrix
 BLOCK_PAD = 8     # block-count alignment of the code matrix
 ENCODE_CHUNK = 65536  # rows encoded per step (bounds the (rows, B, 16) block)

@@ -21,7 +21,12 @@ from .quantization import (
     quantize_tables_unsigned,
     tables_bf16,
 )
-from .scan import estimate_scan
+from .scan import (
+    estimate_scan,
+    estimate_scan_saturating,
+    estimate_scan_xla,
+    register_pallas_impl,
+)
 from .topk import (
     dedup_candidates,
     masked_smallest_k,
@@ -38,6 +43,7 @@ __all__ = [
     "kmeans_fit", "pack_codes", "unpack_codes", "QuantizedTables",
     "block_dists_blocked", "dequantize_estimates", "quantize_tables_signed",
     "quantize_tables_unsigned", "tables_bf16", "estimate_scan",
+    "estimate_scan_saturating", "estimate_scan_xla", "register_pallas_impl",
     "dedup_candidates", "masked_smallest_k", "merge_topk", "smallest_k",
     "streaming_topk_init",
 ]

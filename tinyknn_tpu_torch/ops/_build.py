@@ -25,7 +25,8 @@ from pathlib import Path
 from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR   # utils.enable_compilation_cache moves it
 KERNELS = ("scan_fold_csr", "scan_exact_csr", "estimate_scan_tiled")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -10,6 +10,7 @@ port's computing entry points call it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.topk import smallest_k
@@ -21,6 +22,17 @@ def fp32_matmuls():
     Sets PyTorch's process-wide flags; it touches no device."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def _f32_on(device, *xs):
+    """``xs`` as float32 tensors on one device: that of the first tensor
+    among them, else ``device``, else the card. A NumPy argument is never
+    left on the CPU by default: without CUDA it raises."""
+    held = [a.device for a in xs if isinstance(a, torch.Tensor)]
+    device = held[0] if held else ("cuda" if device is None else device)
+    return [torch.as_tensor(a if isinstance(a, torch.Tensor)
+                            else np.asarray(a), dtype=torch.float32,
+                            device=device) for a in xs]
 
 
 def sq_dists(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
@@ -36,9 +48,14 @@ def l2_normalize(X: torch.Tensor) -> torch.Tensor:
 
 
 def knn_brute(X, Y, k: int, metric: str = "euclidean",
-              chunk: int = 65536) -> torch.Tensor:
+              chunk: int = 65536, device=None) -> torch.Tensor:
     """Exact kNN of each row of X among the rows of Y: an (n, k) int64
-    index tensor on X's device, nearest first, ties to the lower index.
+    index tensor, nearest first, ties to the lower index.
+
+    It runs on the device of X, or of Y when only Y is a tensor; NumPy
+    inputs alone go to ``device``, the card when that is None (the
+    constructors' default), so a default call on NumPy input raises on a
+    machine without CUDA.
 
     ``chunk`` bounds the live (chunk, m) distance block; it is also
     capped so that block stays near 1 GB.
@@ -49,8 +66,7 @@ def knn_brute(X, Y, k: int, metric: str = "euclidean",
         raise ValueError(f"Can't find knn with {k=} and {Y.shape[0]} "
                          f"targets.")
     fp32_matmuls()
-    X = torch.as_tensor(X, dtype=torch.float32)
-    Y = torch.as_tensor(Y, dtype=torch.float32, device=X.device)
+    X, Y = _f32_on(device, X, Y)
     if metric == "angular":
         X = l2_normalize(X)
         Y = l2_normalize(Y)
@@ -65,14 +81,13 @@ def knn_brute(X, Y, k: int, metric: str = "euclidean",
         (0, k), dtype=torch.int64, device=X.device)
 
 
-def cdist(X, Y, chunk: int | None = None) -> torch.Tensor:
-    """Squared Euclidean distances (n, m) in fp32 on X's device.
-    ``chunk`` is accepted for API parity and ignored."""
+def cdist(X, Y, chunk: int | None = None, device=None) -> torch.Tensor:
+    """Squared Euclidean distances (n, m) in fp32, on the device
+    ``knn_brute`` picks. ``chunk`` is accepted for API parity and
+    ignored."""
     del chunk
     fp32_matmuls()
-    X = torch.as_tensor(X, dtype=torch.float32)
-    return sq_dists(X, torch.as_tensor(Y, dtype=torch.float32,
-                                       device=X.device))
+    return sq_dists(*_f32_on(device, X, Y))
 
 
 def bottom_k(arr: torch.Tensor, k: int) -> torch.Tensor:
@@ -92,9 +107,10 @@ def bottom_k_2d(arr: torch.Tensor, k: int) -> torch.Tensor:
     return smallest_k(arr, k)[1]
 
 
-def knn_brute1(x, Y, k: int) -> torch.Tensor:
+def knn_brute1(x, Y, k: int, device=None) -> torch.Tensor:
     """Exact kNN of one query (d,) among the rows of Y: ``bottom_k`` of
-    the fp32 squared distances."""
-    Y = torch.as_tensor(Y, dtype=torch.float32)
-    diff = Y - torch.as_tensor(x, dtype=torch.float32, device=Y.device)
+    the fp32 squared distances, on the device of Y, or of x when only x
+    is a tensor, else on ``device`` (the card when None)."""
+    Y, x = _f32_on(device, Y, x)
+    diff = Y - x
     return bottom_k(torch.einsum("ij,ij->i", diff, diff), k)

@@ -1,4 +1,5 @@
-"""Synthetic benchmark datasets (counterpart of tinyknn_tpu/utils/datasets.py).
+"""Benchmark datasets (counterpart of tinyknn_tpu/utils/datasets.py, and
+of the .fvecs reader in tinyknn_tpu/native.py).
 
 The recipe is copied from the JAX package unchanged, so both packages
 draw byte-identical arrays from one seed and the checked-in ground
@@ -37,3 +38,20 @@ def truth_cache_path(size, dim, k, n_queries, metric, cache_dir=""):
     gates on it, and the probes that load it)."""
     return (f"{cache_dir}trus_clustered-{size}-{dim}_k_neighbours={k}"
             f"_num_queries={n_queries}_metric='{metric}'.npy")
+
+
+def read_fvecs(path):
+    """Read an .fvecs file (each record an int32 dimension d, then d
+    float32 values) to an (n, d) float32 array. Raises ValueError on an
+    empty file, a dimension below 1, a size that is not a whole number
+    of records, or records of unequal dimension."""
+    raw = np.fromfile(path, dtype=np.int32)
+    if raw.size == 0:
+        raise ValueError(f"empty .fvecs file: {path}")
+    d = int(raw[0])
+    if d < 1 or raw.size % (d + 1):
+        raise ValueError(f"corrupt .fvecs file: {path}")
+    recs = raw.reshape(-1, d + 1)
+    if not np.all(recs[:, 0] == d):
+        raise ValueError(f"ragged .fvecs file: {path}")
+    return recs[:, 1:].view(np.float32).copy()

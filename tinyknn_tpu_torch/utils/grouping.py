@@ -1,13 +1,54 @@
 """Inverted-list construction (counterpart of tinyknn_tpu/utils/grouping.py).
 
-Host-side NumPy: an index build computes this once. The layout is the
-JAX package's lane-tiled CSR, bit for bit, so an index built by either
-package serves from the other.
+Host-side NumPy: an index build computes this once. The layouts are the
+JAX package's, bit for bit (the lane-tiled CSR, so an index built by
+either package serves from the other, and the dense padded grid). The
+JAX package can also build the dense grid and the tiled CSR in C++ (a
+counting sort); that output equals these NumPy functions' bit for bit,
+and the port's GloVe-shape index build takes well under a second
+without it, so the port has no compiled counterpart.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .padding import round_up
+
+
+def invert_assignments(assignments, n_lists: int, pad_to: int = 8,
+                       use_native: bool = True):
+    """Padded inverted lists from an (N, p) assignment matrix.
+
+    Point ``i`` appears in lists ``assignments[i, :]`` (the build-probes
+    spill), in point order within a list. Returns ``(ids, counts)``:
+    ``ids`` (n_lists, cap) int32 padded with -1, ``cap`` the longest
+    list rounded up to a multiple of ``pad_to`` (at least ``pad_to``),
+    and ``counts`` (n_lists,) int32. ``use_native`` is accepted for
+    parity with the JAX package, which may build this in C++; the
+    output is the same either way.
+    """
+    del use_native
+    assignments = np.asarray(assignments)
+    if assignments.ndim == 1:
+        assignments = assignments[:, None]
+    p = assignments.shape[1]
+    flat = assignments.reshape(-1).astype(np.int64)
+    if n_lists <= 0:
+        raise ValueError(f"n_lists must be positive, got {n_lists}")
+    if flat.size and (flat.min() < 0 or flat.max() >= n_lists):
+        raise ValueError("assignments out of range")
+    counts = np.bincount(flat, minlength=n_lists).astype(np.int32)
+    cap = max(round_up(int(counts.max()) if counts.size else 0, pad_to),
+              pad_to)
+    order = np.argsort(flat, kind="stable")
+    sorted_lists = flat[order]
+    starts = np.zeros(n_lists + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    pos = np.arange(flat.size, dtype=np.int64) - starts[sorted_lists]
+    ids = np.full((n_lists, cap), -1, dtype=np.int32)
+    ids[sorted_lists, pos] = (order // p).astype(np.int32)
+    return ids, counts
 
 
 def invert_assignments_csr_tiled(assignments, n_lists: int,
