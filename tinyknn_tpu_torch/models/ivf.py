@@ -63,6 +63,7 @@ from ..ops.topk import dedup_candidates, smallest_k
 from ..utils.bruteforce import fp32_matmuls, knn_brute
 from ..utils.grouping import invert_assignments_csr_tiled
 from ..utils.padding import round_up
+from ..utils.timing import counters, span
 from .fast_pq import FastPQ, _build_tables, _resolve_method, as_f32
 
 FOLD_MULT = 8       # fold-width headroom over r (see _fold_tiles)
@@ -277,38 +278,43 @@ class IVF:
         4 * k * n_probes, linear in n_probes; pass an explicit
         ``pass_1`` (floored at k) to pin it.
         """
-        self._check_built()
-        if mode not in ("auto", "bucket", "gather"):
-            raise ValueError(f"unknown mode {mode!r}")
-        fp32_matmuls()
-        q = as_f32(q, self.device)
-        single = q.ndim == 1
-        if single:
-            q = q[None]
-        params = _query_params(self, q.shape[0], k, n_probes, pass_1)
-        k, n_probes, pass_1, r, r_tail, qc, qc0 = params
-        if mode == "auto":
-            mode = ("gather" if q.shape[0] * n_probes <= GATHER_MAX_PAIRS
-                    else "bucket")
-        if mode == "gather":
-            exact = self.scan_impl == "exact"
-            self._check_exact()
-            out = _ivf_query_gather(
-                q, self.pq, self.active_centers,
-                self.csr_vecs if exact else self.csr_codes, self.csr_ids,
-                self.tile_offsets, self.list_counts, self.data,
-                metric=self.metric, k=k, n_probes=n_probes, pass_1=pass_1,
-                max_tiles=self.max_tiles, exact=exact)
-            dropped = 0
-        else:
-            out, dropped, qc, qc0 = _query_with_retries(
-                self, q, params, q.shape[0])
-        out = self._map_labels(out[0] if single else out)
-        if with_stats:
-            return out, _query_stats(
-                dropped, int(q.shape[0]) * n_probes, qc, qc0, pass_1,
-                mode=mode, per_pair_candidates=(r, r_tail))
-        return out
+        with span("tinyknn.query"):
+            self._check_built()
+            if mode not in ("auto", "bucket", "gather"):
+                raise ValueError(f"unknown mode {mode!r}")
+            fp32_matmuls()
+            with span("tinyknn.input"):
+                q = as_f32(q, self.device)
+            single = q.ndim == 1
+            if single:
+                q = q[None]
+            params = _query_params(self, q.shape[0], k, n_probes, pass_1)
+            k, n_probes, pass_1, r, r_tail, qc, qc0 = params
+            if mode == "auto":
+                mode = ("gather"
+                        if q.shape[0] * n_probes <= GATHER_MAX_PAIRS
+                        else "bucket")
+            if mode == "gather":
+                exact = self.scan_impl == "exact"
+                self._check_exact()
+                with span("tinyknn.gather"):
+                    out = _ivf_query_gather(
+                        q, self.pq, self.active_centers,
+                        self.csr_vecs if exact else self.csr_codes,
+                        self.csr_ids, self.tile_offsets, self.list_counts,
+                        self.data, metric=self.metric, k=k,
+                        n_probes=n_probes, pass_1=pass_1,
+                        max_tiles=self.max_tiles, exact=exact)
+                dropped = 0
+            else:
+                out, dropped, qc, qc0 = _query_with_retries(
+                    self, q, params, q.shape[0])
+            out = self._map_labels(out[0] if single else out)
+            if with_stats:
+                return out, _query_stats(
+                    dropped, int(q.shape[0]) * n_probes, qc, qc0, pass_1,
+                    mode=mode, per_pair_candidates=(r, r_tail))
+            return out
 
     def query_stream(self, batches, k, n_probes=1, pass_1=None,
                      with_stats=False, adaptive_qc=True, device_out=False):
@@ -320,7 +326,10 @@ class IVF:
         count of dropped pairs. ``device_out=True`` waits for nothing:
         it returns ``(ids, dropped)`` as tensors on the index's device,
         positional int32 ids with no label mapping, for a caller whose
-        next stage runs on the device; it cannot build the stats dict.
+        next stage runs on the device; it cannot build the stats dict,
+        and since the host never reads the drops, it adds none to
+        ``counters["query.dropped_pairs"]`` (the R passes still count in
+        ``counters["query.attempts"]``).
 
         There is no drop retry (it would rerun the whole stream).
         Instead, with ``adaptive_qc=True`` the first call at a
@@ -335,48 +344,55 @@ class IVF:
         ``with_stats=True`` also returns a dict: pairs dropped across
         the stream, the capacities and the floors applied.
         """
-        self._check_built()
-        if device_out and with_stats:
-            raise ValueError(
-                "device_out=True returns device tensors and cannot build "
-                "the host-side stats dict; audit drops on a host-path call "
-                "(with_stats=True, device_out=False)")
-        fp32_matmuls()
-        batches = as_f32(batches, self.device)
-        if batches.ndim != 3:
-            raise ValueError(f"batches must be (R, Q, d), not "
-                             f"{tuple(batches.shape)}")
-        R, Q, _ = batches.shape
-        q_view, view = self._batch_view(Q)
-        adaptive = bool(adaptive_qc) and not self.queries_per_cluster
-        params = _query_params(self, q_view, k, n_probes, pass_1, **view)
-        floors, key, fresh = (0, 0), None, False
-        if adaptive:
-            params, floors, key, fresh = _stream_adaptive_params(
-                self, batches, k, n_probes, pass_1, params, Q=q_view, **view)
-        k, n_probes, pass_1, r, r_tail, qc, qc0 = params
-        scan_impl = self._scan_engine()
-        first = self._answer_device()
-        dropped = torch.zeros((), dtype=torch.int64, device=first)
-        outs = []
-        for b in range(R):
-            out, drop = self._bucket_query(batches[b], params, scan_impl)
-            outs.append(out)
-            dropped = dropped + drop
-        out = torch.stack(outs) if outs else torch.zeros(
-            (0, Q, k), dtype=torch.int32, device=first)
-        if device_out:
-            return out, dropped
-        dropped = int(dropped)
-        if adaptive and dropped:
-            _refresh_stream_floors(self, key, batches, n_probes,
-                                   just_measured=fresh)
-        out = self._map_labels(out.to(self.device))
-        if with_stats:
-            return out, _query_stats(
-                dropped, R * Q * n_probes, qc, qc0, pass_1,
-                adaptive_qc_floors=floors if adaptive else None)
-        return out
+        with span("tinyknn.query_stream"):
+            self._check_built()
+            if device_out and with_stats:
+                raise ValueError(
+                    "device_out=True returns device tensors and cannot "
+                    "build the host-side stats dict; audit drops on a "
+                    "host-path call (with_stats=True, device_out=False)")
+            fp32_matmuls()
+            with span("tinyknn.input"):
+                batches = as_f32(batches, self.device)
+            if batches.ndim != 3:
+                raise ValueError(f"batches must be (R, Q, d), not "
+                                 f"{tuple(batches.shape)}")
+            R, Q, _ = batches.shape
+            q_view, view = self._batch_view(Q)
+            adaptive = bool(adaptive_qc) and not self.queries_per_cluster
+            params = _query_params(self, q_view, k, n_probes, pass_1, **view)
+            floors, key, fresh = (0, 0), None, False
+            if adaptive:
+                params, floors, key, fresh = _stream_adaptive_params(
+                    self, batches, k, n_probes, pass_1, params, Q=q_view,
+                    **view)
+            k, n_probes, pass_1, r, r_tail, qc, qc0 = params
+            scan_impl = self._scan_engine()
+            first = self._answer_device()
+            dropped = torch.zeros((), dtype=torch.int64, device=first)
+            outs = []
+            for b in range(R):
+                counters["query.attempts"] += 1
+                out, drop = self._bucket_query(batches[b], params,
+                                               scan_impl)
+                outs.append(out)
+                dropped = dropped + drop
+            out = torch.stack(outs) if outs else torch.zeros(
+                (0, Q, k), dtype=torch.int32, device=first)
+            if device_out:
+                return out, dropped
+            with span("tinyknn.drop_check"):
+                dropped = int(dropped)
+            counters["query.dropped_pairs"] += dropped
+            if adaptive and dropped:
+                _refresh_stream_floors(self, key, batches, n_probes,
+                                       just_measured=fresh)
+            out = self._map_labels(out.to(self.device))
+            if with_stats:
+                return out, _query_stats(
+                    dropped, R * Q * n_probes, qc, qc0, pass_1,
+                    adaptive_qc_floors=floors if adaptive else None)
+            return out
 
     def _batch_view(self, Q: int):
         """``(Q, view)`` that size a batch of Q queries' capacities:
@@ -616,9 +632,13 @@ def _query_with_retries(self, q, params, Q: int, **view):
     qc_full, qc0_full = _qc_caps(self, Q, n_probes, r, r_tail, qc, qc0,
                                  n_active=view.get("n_active"))
     for attempt in range(attempts):
-        out, dropped = self._bucket_query(
-            q, (k, n_probes, pass_1, r, r_tail, qc, qc0), scan_impl)
-        dropped = int(dropped)
+        counters["query.attempts"] += 1
+        with span("tinyknn.retry" if attempt else "tinyknn.attempt"):
+            out, dropped = self._bucket_query(
+                q, (k, n_probes, pass_1, r, r_tail, qc, qc0), scan_impl)
+        with span("tinyknn.drop_check"):
+            dropped = int(dropped)
+        counters["query.dropped_pairs"] += dropped
         if attempt + 1 == attempts or dropped == 0:
             break
         if attempt + 2 == attempts:  # last try: can't-drop caps
@@ -825,27 +845,31 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
     count, so it skips the pad blocks.
     """
     C = tile_offsets.shape[0]
-    qgrid, pair_idx, in_slot, dropped = _bucket_pairs(probe_sub, C, qc)
-    t_sel = tables_flat[qgrid.clamp(min=0)]           # (C, qc, M)
-    if scan_impl == "xla":
-        vals, rows = _xla_scan(t_sel, csr_codes, tile_offsets, list_counts,
-                               r, max_tiles)          # (C, qc, r)
-        vals = vals.reshape(C * qc, r)[pair_idx]
-        rows = rows.reshape(C * qc, r)[pair_idx]
-        return (torch.where(in_slot[:, :, None], vals, float("inf")),
-                torch.where(in_slot[:, :, None], rows, 0), dropped)
-    kw = dict(fold_tiles=_fold_tiles(r, max_tiles, fold_mult),
-              max_tiles=max_tiles,
-              slot_counts=(qgrid >= 0).sum(1, dtype=torch.int32))
-    if scan_impl == "exact":
-        enc = scan_exact_csr(t_sel, csr_codes, tile_offsets, list_counts,
-                             **kw)                    # (C, qc, S)
-    else:
-        enc = scan_fold_csr(t_sel, csr_codes, tile_offsets, list_counts,
-                            n_blocks=n_blocks, **kw)
-    my_enc = enc.reshape(C * qc, enc.shape[2])[pair_idx]  # (Q, Ps, S)
-    my_enc = torch.where(in_slot[:, :, None], my_enc, ENC_INVALID)
-    rowbase = (tile_offsets.long() * LANE_TILE)[probe_sub.clamp(max=C - 1)]
+    with span("tinyknn.bucket"):
+        qgrid, pair_idx, in_slot, dropped = _bucket_pairs(probe_sub, C, qc)
+        t_sel = tables_flat[qgrid.clamp(min=0)]       # (C, qc, M)
+        if scan_impl != "xla":
+            slot_counts = (qgrid >= 0).sum(1, dtype=torch.int32)
+    with span("tinyknn.scan"):
+        if scan_impl == "xla":
+            vals, rows = _xla_scan(t_sel, csr_codes, tile_offsets,
+                                   list_counts, r, max_tiles)  # (C, qc, r)
+            vals = vals.reshape(C * qc, r)[pair_idx]
+            rows = rows.reshape(C * qc, r)[pair_idx]
+            return (torch.where(in_slot[:, :, None], vals, float("inf")),
+                    torch.where(in_slot[:, :, None], rows, 0), dropped)
+        kw = dict(fold_tiles=_fold_tiles(r, max_tiles, fold_mult),
+                  max_tiles=max_tiles, slot_counts=slot_counts)
+        if scan_impl == "exact":
+            enc = scan_exact_csr(t_sel, csr_codes, tile_offsets,
+                                 list_counts, **kw)   # (C, qc, S)
+        else:
+            enc = scan_fold_csr(t_sel, csr_codes, tile_offsets, list_counts,
+                                n_blocks=n_blocks, **kw)
+        my_enc = enc.reshape(C * qc, enc.shape[2])[pair_idx]  # (Q, Ps, S)
+        my_enc = torch.where(in_slot[:, :, None], my_enc, ENC_INVALID)
+        rowbase = (tile_offsets.long() * LANE_TILE)[
+            probe_sub.clamp(max=C - 1)]
     return my_enc, rowbase, dropped
 
 
@@ -943,13 +967,15 @@ def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
     """
     Q, d = q.shape
     P = n_probes
-    q = _normalize(q, metric)
-    tables_flat, B = _scan_tables(q, pq.center_blocks, pq.R,
-                                  pq.dims_per_block, pq.table_dtype,
-                                  scan_impl)
+    with span("tinyknn.tables"):
+        q = _normalize(q, metric)
+        tables_flat, B = _scan_tables(q, pq.center_blocks, pq.R,
+                                      pq.dims_per_block, pq.table_dtype,
+                                      scan_impl)
 
     # -- probe selection, exact fp32
-    probe_sel = _probe_select(q, active_centers, P)   # (Q, P)
+    with span("tinyknn.probes"):
+        probe_sel = _probe_select(q, active_centers, P)   # (Q, P)
 
     # -- scan rounds
     kw = dict(max_tiles=max_tiles, fold_mult=fold_mult, scan_impl=scan_impl,
@@ -969,29 +995,33 @@ def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
     # -- selection
     f = min(build_probes, n_probes)
     if scan_impl == "xla":
-        flat_vals = torch.cat([v.reshape(Q, -1) for v in pools], dim=1)
-        flat_rows = torch.cat([v.reshape(Q, -1) for v in bases], dim=1)
-        p1 = min(f * pass_1, flat_vals.shape[1])
-        vsel, top_pos = smallest_k(flat_vals, p1)
-        rows_sel = torch.gather(flat_rows, 1, top_pos)
-        cand = torch.where(torch.isfinite(vsel), csr_ids[rows_sel], -1)
-        return _rescore_topk(cand, data, q, k, f, p1), dropped
+        with span("tinyknn.pool"):
+            flat_vals = torch.cat([v.reshape(Q, -1) for v in pools], dim=1)
+            flat_rows = torch.cat([v.reshape(Q, -1) for v in bases], dim=1)
+            p1 = min(f * pass_1, flat_vals.shape[1])
+            vsel, top_pos = smallest_k(flat_vals, p1)
+            rows_sel = torch.gather(flat_rows, 1, top_pos)
+            cand = torch.where(torch.isfinite(vsel), csr_ids[rows_sel], -1)
+        with span("tinyknn.rescore"):
+            return _rescore_topk(cand, data, q, k, f, p1), dropped
     width = sum(p.shape[1] * p.shape[2] for p in pools)
     p1 = min(f * pass_1, width)
     col_bits = 16 if scan_impl == "exact" else fold_encoding(
         tables_flat.dtype, tables_flat.shape[1] // 16, max_tiles)[0]
-    cand, rows_sel, enc_sel = _select_pool_enc(
-        pools, bases, p1, col_bits, csr_ids, decode_ids=csr_raw is None)
-    if csr_raw is None:
-        return _rescore_topk(cand, data, q, k, f, p1), dropped
+    with span("tinyknn.pool"):
+        cand, rows_sel, enc_sel = _select_pool_enc(
+            pools, bases, p1, col_bits, csr_ids, decode_ids=csr_raw is None)
+    with span("tinyknn.rescore"):
+        if csr_raw is None:
+            return _rescore_topk(cand, data, q, k, f, p1), dropped
 
-    # -- rescore_rows: rescore by flat row, decode ids for winners only
-    diff = csr_raw[rows_sel] - q[:, None, :]          # (Q, p1, d)
-    d2 = torch.einsum("qrd,qrd->qr", diff, diff)
-    d2 = torch.where(enc_sel < ENC_INVALID, d2, float("inf"))
-    return _final_topk(
-        d2, lambda pos: csr_ids[torch.gather(rows_sel, 1, pos)], k, f,
-        p1)[0], dropped
+        # -- rescore_rows: rescore by flat row, decode ids for winners
+        diff = csr_raw[rows_sel] - q[:, None, :]      # (Q, p1, d)
+        d2 = torch.einsum("qrd,qrd->qr", diff, diff)
+        d2 = torch.where(enc_sel < ENC_INVALID, d2, float("inf"))
+        return _final_topk(
+            d2, lambda pos: csr_ids[torch.gather(rows_sel, 1, pos)], k, f,
+            p1)[0], dropped
 
 
 def _scan_tables(q, center_blocks, R, dpb: int, table_dtype: str,

@@ -5,15 +5,52 @@ behind a result before a host clock is read (PyTorch returns from a
 CUDA call before the card has finished it), a ``torch.profiler`` trace
 scope, and the switch that points the kernels' build directory at a
 cache of the caller's choosing.
+
+The query path names its stages with ``span``: while a ``torch.profiler``
+session records (``profile_trace``, or any profiler the caller opens),
+each stage is a ``record_function`` range in the profiler's host
+timeline, on the clock of the CUDA events it enqueues; otherwise a span
+costs one check. ``IVF.query`` opens ``tinyknn.query`` and, inside it,
+``tinyknn.input`` (the queries' copy to the device), then either
+``tinyknn.gather`` (gather mode) or one ``tinyknn.attempt`` per
+bucket-mode pass (``tinyknn.retry`` for the passes after the first),
+each holding ``tinyknn.tables``, ``tinyknn.probes``, a
+``tinyknn.bucket`` and a ``tinyknn.scan`` per scan round,
+``tinyknn.pool`` and ``tinyknn.rescore``, and after each pass
+``tinyknn.drop_check`` (the host's read of the dropped-pair count).
+``IVF.query_stream`` opens ``tinyknn.query_stream`` over the same
+stages, one pass per batch. In a trace, a device op belongs to the
+innermost ``tinyknn.*`` range open when the runtime call that enqueued
+it was made (the trace links the two by their correlation id).
+
+``counters`` holds process-wide counts that the query path adds to
+where the work happens; a reader takes differences over its window:
+``query.attempts``, the bucket-mode passes over a batch, and
+``query.dropped_pairs``, the (query, probe) pairs those passes dropped,
+counted where the host reads them (``query_stream(device_out=True)``
+reads none and counts none).
 """
 
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import torch
+
+counters = {"query.attempts": 0, "query.dropped_pairs": 0}
+
+_NO_SPAN = nullcontext()
+
+
+def span(name: str):
+    """A context manager naming a stage ``name`` in the profiler's host
+    timeline while a ``torch.profiler`` session records; otherwise one
+    shared context that does nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextmanager
@@ -55,7 +92,13 @@ def block(tree):
 def profile_trace(logdir=None):
     """``torch.profiler`` scope over the CPU and CUDA activities that
     writes a Chrome/TensorBoard trace (``*.pt.trace.json``) under
-    ``logdir`` when it closes; does nothing when ``logdir`` is None."""
+    ``logdir`` when it closes; does nothing when ``logdir`` is None.
+
+    The trace carries the query path's stages as ``tinyknn.*`` host
+    ranges (see the module's docstring): in a trace viewer, a kernel's
+    flow arrow leads back to its launch, which sits inside the stage
+    that enqueued it; ``torch.profiler``'s ``key_averages()`` lists each
+    stage's host time under its name."""
     if logdir is None:
         yield
         return
