@@ -28,8 +28,14 @@ In order, and stopping at the first failure with a non-zero exit:
    int8 p1=21), grades recall10@10 against the checked-in f64 ground
    truth, checks K1 ran on every query with as many launches in the
    warm batch as in the first, and repeats the K1 check on each K1 shape
-   the path gave (round 0 at 32 slots and the retry at 128, with the
-   batch's own slot counts), timing K1 against its plain version there;
+   the path gave (round 0 at 32 slots and its overflow grid of 32
+   one-slot lists, with the batch's own slot counts), timing K1 against
+   its plain version there; then a skewed batch (the 10k queries and
+   200 near-copies of the first) must overflow the grid too, retry
+   (4x, then the can't-drop caps), drop no pair and answer as at the
+   caps (on the exact engine of phase 5 the scan budget clamps the
+   caps below the fullest list, and it must drop just what they cannot
+   hold), and the retry's K1 shapes are held and timed as well;
 4b. serving path, on the same index: ``query_stream`` at int8 p1=84 and
    bf16 p1=17 (the 10k queries stacked R = 2 and 7 times, as bench.py
    builds its streams; batch 0 must equal ``query()``'s ids, no pair may
@@ -48,7 +54,8 @@ In order, and stopping at the first failure with a non-zero exit:
    P=1), then rebuilds it with build_probes=2 (P=1 and P=2), grades
    recall10@10, checks K2 ran, and holds and times K2 against its plain
    version on each K2 shape of the build_probes=1 query (round 0 at 32
-   slots and the retry at 128, with the batch's own slot counts). Its
+   slots and its overflow grid, with the batch's own slot counts, and
+   the same skewed batch's 4x retry and caps). Its
    serving surface (5b): the stream (R = 2, recall >= 0.96, one K2
    launch per batch, its first K2 call against the plain version), a
    warm ``device_out`` stream call under
@@ -164,6 +171,10 @@ K3_QUERIES = 1000
 # (the JAX package's tests allow gather 0.02 below bucket); the 'xla'
 # engine gated like the fused path; tune_n_probes; Flat against the f64
 # truth
+# a skewed batch (phases 4 and 5): the 10k queries and this many
+# near-copies of the first, past round 0's 32 slots and its
+# overflow grid's 32, so that IVF.query escalates (4x, then the caps)
+SKEW_NEAR = 200
 STREAM_POINTS = (("int8", 84), ("bf16", 17))
 STREAM_REPS = (2, 7)
 GATHER_QS = (1, 8, 64)
@@ -761,7 +772,8 @@ def by_dtype(args, kw):
 
 def by_shape(args, kw):
     """A scan call's table type, query slots and fold width: round 0,
-    the tail round and each retry capacity are told apart."""
+    the tail round, the overflow grids and each retry capacity are told
+    apart."""
     return args[0].dtype, tuple(args[0].shape), kw["fold_tiles"]
 
 
@@ -788,11 +800,86 @@ def capture_first(module, name: str, store: dict, key=by_dtype):
     return undo
 
 
+def skewed_batch(queries):
+    """The queries and ``SKEW_NEAR`` near-copies of the first of them
+    (1% noise), which all land in its list. A query, not a corpus point:
+    near a corpus point the exact engine's distances fall near 0, where
+    K2 and its plain version, adding the same products in another
+    order, differ by more than 1 bf16 ulp of so small a value."""
+    rng = np.random.default_rng(0)
+    x = np.asarray(queries[0], np.float32)
+    near = x + 0.01 * np.abs(x).mean() * rng.standard_normal(
+        (SKEW_NEAR, x.shape[0]))
+    return np.concatenate([np.asarray(queries, np.float32),
+                           near.astype(np.float32)])
+
+
+def skewed_check(ivf, skew, p1, label: str, card: str) -> dict:
+    """IVF.query's escalation on a skewed batch at P=1: the overflow
+    grid overflows too, so the query retries (attempts >= 2) and ends
+    at the can't-drop caps. It drops what the caps cannot hold, counted
+    here from the probe selection (none unless ``scan_budget_bytes``
+    clamps them below the fullest list), and answers as the same batch
+    at the caps does. Returns the capacities of the 4x retry and the
+    caps, the counts, and the warm time."""
+    import torch
+    import tinyknn_tpu_torch.models.ivf as ivf_module
+    from tinyknn_tpu_torch.utils.timing import counters
+    run = lambda: ivf.query(skew, k=10, n_probes=1, pass_1=p1,  # noqa
+                            mode="bucket", with_stats=True)
+    before = dict(counters)
+    (ids, stats), t_cold = timed(run)
+    delta = {key: counters[key] - before[key] for key in before}
+    (ids, stats), t_warm = timed(run)
+    Q = skew.shape[0]
+    k, P, pass_1, r, r_tail, qc, qc0 = ivf_module._query_params(
+        ivf, Q, 10, 1, p1)
+    caps = ivf_module._qc_caps(ivf, Q, P, r, r_tail, qc, qc0)
+    retry_qc0 = min(-(-4 * qc0 // 8) * 8, caps[1])
+    qd = torch.as_tensor(skew, device=ivf.device)
+    lists = ivf_module._probe_select(ivf_module._normalize(qd, ivf.metric),
+                                     ivf.active_centers, 1)[:, 0]
+    load = torch.bincount(lists, minlength=ivf.active_centers.shape[0])
+    left = int((load - caps[1]).clamp(min=0).sum())
+    want, drops = ivf._bucket_query(qd, (k, P, pass_1, r, r_tail, *caps),
+                                    ivf._scan_engine())
+    same = bool(torch.equal(ids, want))
+    print(f"  {label} skewed batch ({Q - SKEW_NEAR} queries + {SKEW_NEAR} "
+          f"near-copies, fullest list {int(load.max())}): attempts "
+          f"{delta['query.attempts']}, rescued "
+          f"{delta['query.rescued_pairs']}, dropped in passes "
+          f"{delta['query.dropped_pairs']}, dropped pairs "
+          f"{stats['dropped_probe_pairs']} (past the caps {left}); qc0 "
+          f"{qc0} -> 4x {retry_qc0} -> used "
+          f"{stats['queries_per_cluster_cap_round0']} (caps {caps[1]}); "
+          f"ids equal to the caps' {same}; query {t_warm:.4f} s warm, "
+          f"{t_cold:.4f} s first {card}")
+    if delta["query.attempts"] < 2 or not delta["query.rescued_pairs"]:
+        raise AssertionError(f"{label}: the skewed batch did not escalate "
+                             f"past its overflow grid: {delta}")
+    if not stats["dropped_probe_pairs"] == int(drops) == left:
+        raise AssertionError(f"{label}: the skewed batch dropped "
+                             f"{stats['dropped_probe_pairs']} pairs, "
+                             f"{int(drops)} at the caps, {left} past them")
+    if not same:
+        raise AssertionError(f"{label}: the skewed batch's ids differ from "
+                             f"those at the can't-drop caps")
+    return dict(attempts=delta["query.attempts"],
+                rescued=delta["query.rescued_pairs"],
+                pass_drops=delta["query.dropped_pairs"],
+                dropped=stats["dropped_probe_pairs"],
+                fullest_list=int(load.max()), qc0=qc0, retry_qc0=retry_qc0,
+                used_qc0=stats["queries_per_cluster_cap_round0"],
+                caps_qc0=caps[1], query_s=t_warm, first_query_s=t_cold)
+
+
 def pq_path(ivf, data, queries, truth, card):
-    """Phase 4: the IVF query over 4-bit PQ codes through K1. Every K1
-    shape the path gives (round 0 and the retry at 128 slots, per table
-    type and fold width) is held against the plain version with the
-    batch's own slot counts, timed, and given its bound."""
+    """Phase 4: the IVF query over 4-bit PQ codes through K1, and a
+    skewed batch through ``query()``'s escalation (``skewed_check``).
+    Every K1 shape the path gives (round 0, its overflow grid, the 4x
+    retry and the can't-drop caps, per table type and fold width) is
+    held against the plain version with the batch's own slot counts,
+    timed, and given its bound."""
     import torch
     import tinyknn_tpu_torch.models.ivf as ivf_module
     from tinyknn_tpu_torch.ops.kernels import (
@@ -837,6 +924,10 @@ def pq_path(ivf, data, queries, truth, card):
                             query_s=t_warm, first_query_s=t_cold,
                             k1_launches_per_batch=per_batch[1]))
         stage_profile(f"PQ path {table_dtype} p1={p1}", run, card)
+    table_dtype, p1, _ = POINTS[0]
+    ivf.pq.table_dtype = table_dtype
+    skewed = skewed_check(ivf, skewed_batch(queries), p1,
+                          f"{table_dtype} p1={p1}", card)
     launches = read_counts("PQ path")["scan_fold_csr"]
     undo()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -874,7 +965,7 @@ def pq_path(ivf, data, queries, truth, card):
               f"plain {four[2]:.4f} / {four[3]:.4f} ms per call, bound "
               f"{b_ms:.4f} ms ({b_by}) {card}")
     summary = {"fit_s": t_fit, "build_s": t_build, "queries": results,
-               "peak_gib": peak_gb}
+               "skewed": skewed, "peak_gib": peak_gb}
     return summary, launches, err, calls
 
 
@@ -936,7 +1027,7 @@ def hold_captured(label, calls: dict, exact_engine: bool = False) -> float:
 
 def stream_point(ivf, qd, truth, p1, card):
     """query_stream at one operating point, P=1: batch 0 against query()
-    on the same queries, the floors against query()'s retry, and
+    on the same queries, the floors against query()'s capacities, and
     bench.py's sustained rates (marginal between R=2 and R=7), consumed
     on the device and delivered to the host. Only the stream's own calls
     are counted: one K1 launch per batch (P=1 scans round 0 only), and
@@ -985,7 +1076,7 @@ def stream_point(ivf, qd, truth, p1, card):
           f"{st['queries_per_cluster_cap_round0']}/"
           f"{st['queries_per_cluster_cap']} vs query()'s "
           f"{st_q['queries_per_cluster_cap_round0']}/"
-          f"{st_q['queries_per_cluster_cap']} after its retry; dropped "
+          f"{st_q['queries_per_cluster_cap']}; dropped "
           f"pairs stream R={lo} {drops[0]}, R={hi} {drops[2]}, query() "
           f"{drops[1]}; batch-0 recall10@10 {rec:.4f}")
     print(f"    best of 3, R={lo} / R={hi}: device_out {dev_s[lo]:.4f} / "
@@ -1249,10 +1340,12 @@ def exact_query(ivf, queries, truth, P: int, card: str, label: str):
 
 
 def exact_path(ivf, data, queries, truth, card):
-    """Phase 5: the exact engine through K2, build_probes 1 and 2. Each
-    K2 shape of the build_probes=1 query (round 0 at 32 slots and the
-    retry at 128) is held against the plain version with the batch's
-    own slot counts, timed, and given its bound."""
+    """Phase 5: the exact engine through K2, build_probes 1 and 2, and a
+    skewed batch through ``query()``'s escalation (``skewed_check``).
+    Each K2 shape of the build_probes=1 queries (round 0 at 32 slots,
+    the overflow grid, the 4x retry and the can't-drop caps) is held
+    against the plain version with the batch's own slot counts, timed,
+    and given its bound."""
     import torch
     import tinyknn_tpu_torch.models.ivf as ivf_module
     from tinyknn_tpu_torch.ops.kernels import (
@@ -1268,6 +1361,8 @@ def exact_path(ivf, data, queries, truth, card):
           f"csr_vecs {tuple(vecs.shape)} "
           f"({vecs.numel() * vecs.element_size() / 1e6:.0f} MB)")
     bp1 = exact_query(ivf, queries, truth, 1, card, "build_probes=1")
+    skewed = skewed_check(ivf, skewed_batch(queries), None,
+                          "exact build_probes=1", card)
     launches = read_counts("exact path, build_probes=1")["scan_exact_csr"]
     undo()
     if bp1["recall"] < g1:
@@ -1378,7 +1473,8 @@ def exact_path(ivf, data, queries, truth, card):
               f"{four[1]:.4f} ms, plain {four[2]:.4f} / {four[3]:.4f} ms per "
               f"call, bound {b_ms:.4f} ms ({b_by}) {card}")
     summary = {"set_scan_impl_s": t_switch, "build_bp2_s": t_build,
-               "queries": [bp1] + bp2, "peak_gib": peak_gb,
+               "queries": [bp1] + bp2, "skewed": skewed,
+               "peak_gib": peak_gb,
                "serving": serving}
     return summary, launches, err, calls, serving_launches
 
@@ -2178,7 +2274,8 @@ def examples_path(tmp: Path, archive: Path, archive_bp2: Path, pq_sum: dict,
             n for ns in by_p.values() for n in ns):
         raise AssertionError(f"ivf_example: K1 did not launch in every "
                              f"query() call: {by_p}")
-    held = {key: k1_calls[key] for key in ((1, 0), (2, 1))}
+    # each round launches K1 twice, its buckets then its overflow grid
+    held = {key: k1_calls[key] for key in ((1, 0), (2, 2))}
     err["scan_fold_csr"] = hold_captured("ivf_example round 0 at P=1 and "
                                          "the tail round at P=2", held)
     rows = out["rows"]
@@ -2482,10 +2579,14 @@ def run(tmp: Path) -> int:
         err[kname] = max(err[kname], e)
 
     r0 = first_timed(k1_calls, "K1", torch.int8, 32)
-    retry = first_timed(k1_calls, "K1", torch.int8, 128)
+    over = first_timed(k1_calls, "K1", torch.int8, 1)
+    retry = first_timed(k1_calls, "K1", torch.int8,
+                        pq_sum["skewed"]["retry_qc0"])
     bf = first_timed(k1_calls, "K1", torch.bfloat16)
     e_r0 = first_timed(k2_calls, "K2", torch.bfloat16, 32)
-    e_retry = first_timed(k2_calls, "K2", torch.bfloat16, 128)
+    e_over = first_timed(k2_calls, "K2", torch.bfloat16, 1)
+    e_retry = first_timed(k2_calls, "K2", torch.bfloat16,
+                          exact_sum["skewed"]["retry_qc0"])
     print(f"all phases: {time.perf_counter() - t_run:.1f} s {card}")
     print(json.dumps({"pq_path": pq_sum, "serving_path": serving_sum,
                       "exact_path": exact_sum,
@@ -2499,6 +2600,8 @@ def run(tmp: Path) -> int:
             library_reason=NO_LIBRARY["scan_fold_csr"],
             shape="int8 (1087, 32, 1024) round 0 of int8 p1=84, the "
                   "batch's slot counts",
+            overflow_ms=over["ms"], overflow_plain_ms=over["plain_ms"],
+            overflow_bound_ms=over["bound_ms"],
             retry_ms=retry["ms"], retry_plain_ms=retry["plain_ms"],
             retry_bound_ms=retry["bound_ms"],
             bf16_ms=bf["ms"], bf16_plain_ms=bf["plain_ms"],
@@ -2520,7 +2623,12 @@ def run(tmp: Path) -> int:
         "scan_exact_csr": dict(
             launches=k2_launches, **e_r0, library_ms=None,
             library_reason=NO_LIBRARY["scan_exact_csr"],
-            retry_shape=e_retry["shape"], retry_ms=e_retry["ms"], retry_plain_ms=e_retry["plain_ms"],
+            overflow_shape=e_over["shape"], overflow_ms=e_over["ms"],
+            overflow_plain_ms=e_over["plain_ms"],
+            overflow_bound_ms=e_over["bound_ms"],
+            overflow_bound_by=e_over["bound_by"],
+            retry_shape=e_retry["shape"], retry_ms=e_retry["ms"],
+            retry_plain_ms=e_retry["plain_ms"],
             retry_bound_ms=e_retry["bound_ms"],
             retry_bound_by=e_retry["bound_by"],
             serving_launches=k2_serving,

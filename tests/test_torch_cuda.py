@@ -259,6 +259,40 @@ def test_stream_and_rescore_rows_match_query(cuda, scan_impl):
     assert kernel.launches > launches and _plain_calls() == plain
 
 
+@pytest.mark.parametrize("scan_impl, table_dtype",
+                         [("fused", "int8"), ("fused", "bf16"),
+                          ("exact", "int8")])
+def test_overflow_grid_answers_as_the_caps_do(cuda, scan_impl, table_dtype):
+    """On the card a batch that overflows its buckets by less than a
+    bucket in both rounds answers in one pass: each round launches its
+    kernel twice (its buckets, its overflow grid) and no plain version,
+    and the ids are those of the same batch at the can't-drop caps."""
+    import numpy as np
+    from tinyknn_tpu_torch.models import ivf as ivf_module
+    from tinyknn_tpu_torch.utils import timing
+    ivf, qs = _cuda_index(cuda, scan_impl, bp=1)
+    ivf.pq.table_dtype = table_dtype
+    rng = np.random.default_rng(0)
+    near = ivf.data[5].cpu().numpy() + 0.01 * rng.standard_normal(
+        (50, qs.shape[1]))
+    qb = torch.cat([qs, torch.as_tensor(near, dtype=torch.float32,
+                                        device=cuda)])
+    kernel = scan_exact_csr if scan_impl == "exact" else scan_fold_csr
+    before, plain, launches = (dict(timing.counters), _plain_calls(),
+                               kernel.launches)
+    ids, st = ivf.query(qb, k=8, n_probes=3, mode="bucket", with_stats=True)
+    delta = {k: timing.counters[k] - before[k] for k in before}
+    assert delta["query.attempts"] == 1 and st["dropped_probe_pairs"] == 0
+    assert delta["query.rescued_pairs"] > 0
+    assert kernel.launches - launches == 4 and _plain_calls() == plain
+    k, P, p1, r, r_tail, qc, qc0 = ivf_module._query_params(ivf, len(qb),
+                                                            8, 3, None)
+    caps = ivf_module._qc_caps(ivf, len(qb), P, r, r_tail, qc, qc0)
+    want, drops = ivf._bucket_query(qb, (k, P, p1, r, r_tail, *caps),
+                                    ivf._scan_engine())
+    assert int(drops) == 0 and torch.equal(ids, want)
+
+
 @pytest.mark.parametrize("scan_impl", ["fused", "xla", "exact"])
 def test_gather_and_xla_run_no_plain_kernel(cuda, scan_impl):
     """Gather mode and the 'xla' engine are plain torch by design: on

@@ -124,8 +124,13 @@ def test_a_retry_counts_its_pass_and_the_first_pass_drops(index):
     (_, stats), delta = holder["out"]
     assert stats["dropped_probe_pairs"] == 0
     assert stats["queries_per_cluster_cap_round0"] > params[6]
-    assert delta == {"query.attempts": 2,
-                     "query.dropped_pairs": first_drops}
+    # each round's overflow grid (qc0 and qc entries) rescues what it
+    # holds; the drops past it are counted and send the batch to the retry
+    assert delta["query.attempts"] == 2
+    assert 0 < delta["query.rescued_pairs"] <= params[5] + params[6]
+    assert delta["query.dropped_pairs"] > 0
+    assert (delta["query.dropped_pairs"] + delta["query.rescued_pairs"]
+            == first_drops)
     (query,) = _names(spans, "tinyknn.query")
     (attempt,) = _names(spans, "tinyknn.attempt")
     (retry,) = _names(spans, "tinyknn.retry")
@@ -148,7 +153,8 @@ def test_query_stream_counts_one_pass_per_batch(index):
     spans = _spans(run)
     (_, stats), delta = holder["out"]
     assert delta == {"query.attempts": 3,
-                     "query.dropped_pairs": stats["dropped_probe_pairs"]}
+                     "query.dropped_pairs": stats["dropped_probe_pairs"],
+                     "query.rescued_pairs": 0}
     assert stats["dropped_probe_pairs"] > 0
     (call,) = _names(spans, "tinyknn.query_stream")
     assert len(_names(spans, "tinyknn.scan")) == 6
@@ -156,7 +162,8 @@ def test_query_stream_counts_one_pass_per_batch(index):
     # device_out reads no drop count, so it counts no dropped pair
     _, delta = _delta(lambda: ivf.query_stream(
         stream, k=5, n_probes=2, adaptive_qc=False, device_out=True))
-    assert delta == {"query.attempts": 3, "query.dropped_pairs": 0}
+    assert delta == {"query.attempts": 3, "query.dropped_pairs": 0,
+                     "query.rescued_pairs": 0}
 
 
 def test_gather_mode_is_one_gather_span_and_no_pass(index):
@@ -171,7 +178,8 @@ def test_gather_mode_is_one_gather_span_and_no_pass(index):
     spans = _spans(run)
     (_, stats), delta = holder["out"]
     assert stats["mode"] == "gather"
-    assert delta == {"query.attempts": 0, "query.dropped_pairs": 0}
+    assert delta == {"query.attempts": 0, "query.dropped_pairs": 0,
+                     "query.rescued_pairs": 0}
     (query,) = _names(spans, "tinyknn.query")
     (gather,) = _names(spans, "tinyknn.gather")
     assert _inside(gather, query)

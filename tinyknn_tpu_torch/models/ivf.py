@@ -21,6 +21,13 @@ Layout and query pipeline are the JAX package's:
     and cut to k. ``scan_impl='xla'`` scans the same buckets in plain
     torch instead (dense one-hot products and a top-r per pair), for
     lists too long for the fold encoding;
+  * pairs past a full bucket: ``query()``'s first pass scans up to one
+    more bucket's worth of them per round in an overflow grid (the
+    same kernel, one query slot per entry), in the same pass and with
+    no host sync; only past that grid does it rerun the batch at 4x
+    the capacities. ``query_stream``, a pinned ``queries_per_cluster``,
+    the sharded index and 'xla' report their drops as the JAX package
+    does;
   * gather mode (the latency path for small batches): each query
     gathers its probed lists and sums its own tables over them
     (``_ivf_query_gather``), with no bucketing and no kernel;
@@ -269,10 +276,14 @@ class IVF:
         the bucket capacity, the capacities used).
 
         A skewed batch (many queries near one list) can overflow the
-        per-list bucket capacity; the query then retries at 4x the
+        per-list bucket capacity. The first pass scans the overflowing
+        (query, probe) pairs of each scan round, up to one more
+        bucket's worth, in an overflow grid of the same round, so a few
+        overflows cost one small kernel launch and change no id. Only
+        when that grid overflows too does the query retry, at 4x the
         capacity and last at the can't-drop caps, as the JAX package
-        does. ``queries_per_cluster`` pins the capacity and turns the
-        retries off.
+        does. ``queries_per_cluster`` pins the capacity and turns both
+        off: the drops are then reported, as by ``query_stream``.
 
         On the exact engine the default rescore sliver ``pass_1`` is
         4 * k * n_probes, linear in n_probes; pass an explicit
@@ -308,7 +319,9 @@ class IVF:
                 dropped = 0
             else:
                 out, dropped, qc, qc0 = _query_with_retries(
-                    self, q, params, q.shape[0])
+                    self, q, params, q.shape[0],
+                    rescue=(not self.queries_per_cluster
+                            and self._scan_engine() != "xla"))
             out = self._map_labels(out[0] if single else out)
             if with_stats:
                 return out, _query_stats(
@@ -442,8 +455,10 @@ class IVF:
             return "xla"
         return "fused"
 
-    def _bucket_query(self, q, params, scan_impl):
-        """One bucket-mode batch: (ids (Q, k), dropped pairs tensor)."""
+    def _bucket_query(self, q, params, scan_impl, rescue=False):
+        """One bucket-mode batch: (ids (Q, k), dropped pairs tensor);
+        ``rescue``: ``_ivf_query``'s overflow grids, whose drops are
+        int64[2] (still dropped, rescued)."""
         k, n_probes, pass_1, r, r_tail, qc, qc0 = params
         return _ivf_query(
             q, self.pq, self.active_centers,
@@ -452,7 +467,7 @@ class IVF:
             self.csr_raw, metric=self.metric, k=k, n_probes=n_probes,
             pass_1=pass_1, r=r, r_tail=r_tail, qc=qc, qc0=qc0,
             max_tiles=self.max_tiles, build_probes=self.build_probes,
-            fold_mult=self.fold_mult, scan_impl=scan_impl)
+            fold_mult=self.fold_mult, scan_impl=scan_impl, rescue=rescue)
 
     def _map_labels(self, out):
         """Positional ids -> user labels (-1 stays -1), on the device."""
@@ -620,12 +635,17 @@ def _query_params(self, Q, k, n_probes, pass_1, qc_min=0, qc0_min=0,
     return k, n_probes, pass_1, r, r_tail, qc, qc0
 
 
-def _query_with_retries(self, q, params, Q: int, **view):
+def _query_with_retries(self, q, params, Q: int, rescue: bool = False,
+                        **view):
     """``query()``'s bucket-mode attempts: ``self._bucket_query`` on the
     batch ``q``; while pairs were dropped, again at 4x the capacities and
     last at the can't-drop caps (one attempt when ``queries_per_cluster``
-    pins them). ``Q`` and ``view`` are ``_batch_view``'s. Returns ``(ids,
-    dropped pairs, qc, qc0)`` of the last attempt."""
+    pins them). ``rescue`` (``IVF.query`` asks for it on the engines
+    'fused' and 'exact' with capacities not pinned): the first attempt
+    scans each round's overflowing pairs in an overflow grid, so it
+    retries only when that grid overflowed too. ``Q`` and ``view`` are
+    ``_batch_view``'s. Returns ``(ids, dropped pairs, qc, qc0)`` of the
+    last attempt."""
     k, n_probes, pass_1, r, r_tail, qc, qc0 = params
     scan_impl = self._scan_engine()
     attempts = 1 if self.queries_per_cluster else 3
@@ -633,12 +653,15 @@ def _query_with_retries(self, q, params, Q: int, **view):
                                  n_active=view.get("n_active"))
     for attempt in range(attempts):
         counters["query.attempts"] += 1
+        params = (k, n_probes, pass_1, r, r_tail, qc, qc0)
+        grid = rescue and not attempt
         with span("tinyknn.retry" if attempt else "tinyknn.attempt"):
-            out, dropped = self._bucket_query(
-                q, (k, n_probes, pass_1, r, r_tail, qc, qc0), scan_impl)
+            out, drops = self._bucket_query(q, params, scan_impl, grid)
         with span("tinyknn.drop_check"):
-            dropped = int(dropped)
+            # the grid's drops are int64[2]: (still dropped, rescued)
+            dropped, rescued = drops.tolist() if grid else (int(drops), 0)
         counters["query.dropped_pairs"] += dropped
+        counters["query.rescued_pairs"] += rescued
         if attempt + 1 == attempts or dropped == 0:
             break
         if attempt + 2 == attempts:  # last try: can't-drop caps
@@ -825,7 +848,7 @@ def _bucket_pairs(probe_sub, C: int, qc: int):
 def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
                        list_counts, qc: int, r: int, max_tiles: int,
                        fold_mult: int, scan_impl: str = "fused",
-                       n_blocks: int | None = None):
+                       n_blocks: int | None = None, rescue: bool = False):
     """One bucketed scan round over a probe subset.
 
     probe_sub: (Q, Ps) list ids. Scans every list once for all its
@@ -843,6 +866,14 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
     list's occupied slot count, counted on the device, so it scans no
     empty slot; 'fused' also hands K1 ``n_blocks``, the real table block
     count, so it skips the pad blocks.
+
+    ``rescue`` ('fused' and 'exact'): the first ``qc`` pairs that found
+    their bucket full are scanned in the same round by a second launch
+    of the kernel over an overflow grid (``_overflow_grid``), and their
+    fold rows take the place of the dropped rows. A pair's fold depends
+    on the pair, r and the fold width alone, so a rescued pair's row is
+    the one a grid with room for it gives. ``dropped`` is then int64[2]:
+    the pairs still dropped and the pairs rescued.
     """
     C = tile_offsets.shape[0]
     with span("tinyknn.bucket"):
@@ -850,6 +881,9 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
         t_sel = tables_flat[qgrid.clamp(min=0)]       # (C, qc, M)
         if scan_impl != "xla":
             slot_counts = (qgrid >= 0).sum(1, dtype=torch.int32)
+        if rescue:
+            over = _overflow_grid(probe_sub, in_slot, dropped, tables_flat,
+                                  tile_offsets, list_counts, qc)
     with span("tinyknn.scan"):
         if scan_impl == "xla":
             vals, rows = _xla_scan(t_sel, csr_codes, tile_offsets,
@@ -859,18 +893,55 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
             return (torch.where(in_slot[:, :, None], vals, float("inf")),
                     torch.where(in_slot[:, :, None], rows, 0), dropped)
         kw = dict(fold_tiles=_fold_tiles(r, max_tiles, fold_mult),
-                  max_tiles=max_tiles, slot_counts=slot_counts)
-        if scan_impl == "exact":
-            enc = scan_exact_csr(t_sel, csr_codes, tile_offsets,
-                                 list_counts, **kw)   # (C, qc, S)
-        else:
-            enc = scan_fold_csr(t_sel, csr_codes, tile_offsets, list_counts,
-                                n_blocks=n_blocks, **kw)
-        my_enc = enc.reshape(C * qc, enc.shape[2])[pair_idx]  # (Q, Ps, S)
+                  max_tiles=max_tiles)
+        if scan_impl == "fused":
+            kw["n_blocks"] = n_blocks
+        scan = scan_exact_csr if scan_impl == "exact" else scan_fold_csr
+        enc = scan(t_sel, csr_codes, tile_offsets, list_counts,
+                   slot_counts=slot_counts, **kw)     # (C, qc, S)
+        S = enc.shape[2]
+        my_enc = enc.reshape(C * qc, S)[pair_idx]     # (Q, Ps, S)
         my_enc = torch.where(in_slot[:, :, None], my_enc, ENC_INVALID)
+        if rescue:
+            pair, t_over, toff, counts, filled, dropped = over
+            enc = scan(t_over, csr_codes, toff, counts, slot_counts=filled,
+                       **kw)                          # (qc, 1, S)
+            # a rescued pair's row holds the sentinel, so the minimum is
+            # its fold row; an empty entry's row is all sentinels
+            my_enc.view(-1, S).scatter_reduce_(
+                0, pair[:, None].expand(-1, S), enc.view(-1, S), "amin")
         rowbase = (tile_offsets.long() * LANE_TILE)[
             probe_sub.clamp(max=C - 1)]
     return my_enc, rowbase, dropped
+
+
+def _overflow_grid(probe_sub, in_slot, dropped, tables_flat, tile_offsets,
+                   list_counts, O: int):
+    """The overflow grid of a scan round: its first ``O`` dropped pairs
+    in pair order as ``O`` lists of one query slot each, compacted on
+    the device with no host sync (a cumsum rank and a scatter).
+
+    Returns ``(pair int64[O] each entry's flat (query, probe) index,
+    tables [O, 1, M], tile_offsets int32[O], counts int32[O], slot
+    counts int32[O], drops int64[2])``: an empty entry points at pair 0
+    with no occupied slot, so the kernel scans nothing for it; drops is
+    (pairs still dropped, pairs rescued), of the round's ``dropped``."""
+    C = tile_offsets.shape[0]
+    Ps = probe_sub.shape[1]
+    lists = probe_sub.reshape(-1)
+    over = ~in_slot.reshape(-1) & (lists < C)
+    rank = torch.cumsum(over, 0)                      # 1-based among drops
+    # entry 0 takes every other pair and entry O + 1 the drops past O
+    dest = (rank * over).clamp(max=O + 1)
+    pair = torch.zeros(O + 2, dtype=torch.int64, device=lists.device)
+    pair = pair.scatter_(0, dest, torch.arange(
+        lists.shape[0], device=lists.device))[1:O + 1]
+    filled = (rank[-1] >= torch.arange(1, O + 1, device=lists.device))
+    c = lists[pair].clamp(max=C - 1)
+    left = (dropped - O).clamp(min=0)
+    return (pair, tables_flat[pair // Ps][:, None], tile_offsets[c],
+            list_counts[c], filled.to(torch.int32),
+            torch.stack([left, dropped - left]))
 
 
 def _xla_scan(t_sel, csr_codes, tile_offsets, list_counts, r: int,
@@ -947,9 +1018,12 @@ def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
                list_counts, data, csr_raw=None, *, metric: str, k: int,
                n_probes: int, pass_1: int, r: int, r_tail: int, qc: int,
                qc0: int, max_tiles: int, build_probes: int, fold_mult: int,
-               scan_impl: str = "fused"):
+               scan_impl: str = "fused", rescue: bool = False):
     """The batched bucket-mode IVF query: returns (ids (Q, k), dropped
-    pairs).
+    pairs); with ``rescue`` ('fused' and 'exact'), each scan round scans
+    the pairs that overflow its buckets in an overflow grid (see
+    ``_bucket_scan_round``), and the drops are int64[2]: the pairs
+    still dropped and the pairs rescued.
 
     ``scan_impl``: 'fused' (K1 over the codes), 'exact' (csr_codes
     holds the exact engine's vector tiles, stage 1 augments the queries
@@ -979,7 +1053,7 @@ def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
 
     # -- scan rounds
     kw = dict(max_tiles=max_tiles, fold_mult=fold_mult, scan_impl=scan_impl,
-              n_blocks=B)
+              n_blocks=B, rescue=rescue)
     v0, rows0, dropped = _bucket_scan_round(
         probe_sel[:, :1], tables_flat, csr_codes, tile_offsets, list_counts,
         qc=qc0, r=r, **kw)

@@ -25,10 +25,13 @@ it was made (the trace links the two by their correlation id).
 
 ``counters`` holds process-wide counts that the query path adds to
 where the work happens; a reader takes differences over its window:
-``query.attempts``, the bucket-mode passes over a batch, and
+``query.attempts``, the bucket-mode passes over a batch;
 ``query.dropped_pairs``, the (query, probe) pairs those passes dropped,
 counted where the host reads them (``query_stream(device_out=True)``
-reads none and counts none).
+reads none and counts none); and ``query.rescued_pairs``, the pairs
+that overflowed their bucket in ``IVF.query``'s first pass and were
+scanned in its overflow grid instead of dropped (read in the same
+transfer as the drops).
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ from pathlib import Path
 
 import torch
 
-counters = {"query.attempts": 0, "query.dropped_pairs": 0}
+counters = {"query.attempts": 0, "query.dropped_pairs": 0,
+            "query.rescued_pairs": 0}
 
 _NO_SPAN = nullcontext()
 
