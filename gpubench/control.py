@@ -39,8 +39,9 @@ def slots(index) -> dict:
 
 
 def _cell(cell_name, bench_file, device, override):
+    """(the entry module the configuration names, its Entry, the cell's
+    judge, its traffic mix)."""
     from gpubench import core
-    from gpubench.entries import ivf_query
     spec = core.load_spec(bench_file)
     cell, centry = core.cell_of(spec, cell_name)
     config = core.load_config(bench_file, centry, override)
@@ -48,7 +49,8 @@ def _cell(cell_name, bench_file, device, override):
                      / f"{cell_name}.json").read_text())
     mix = json.loads((core.ROOT / "traffic"
                       / f"{cell['traffic']}.json").read_text())
-    return ivf_query.Entry(config, device), wl, mix
+    entries = core.part("entries", config["entry"])
+    return entries, entries.Entry(config, device), wl, mix
 
 
 def _fit(entry, iters=None):
@@ -64,17 +66,17 @@ def _fit(entry, iters=None):
 def run(cell_name: str, seeds, *, bench_file: Path,
         device="cuda", override=None, log=print) -> list:
     """[(seed, numbers, correct, checks)] of the control on each seed.
-    The control derives its index from the program's fit (as the judge
-    does), so its fit numbers are the program's."""
+    The control derives its index from the program's fit and the
+    configuration's projection (as the judge does), so its fit numbers
+    are the program's."""
     from gpubench import judge
-    from gpubench.entries import ivf_query
     from gpubench.reference import ivf as ref
-    entry, wl, mix = _cell(cell_name, bench_file, device, override)
+    entries, entry, wl, mix = _cell(cell_name, bench_file, device, override)
     t0 = time.perf_counter()
     fit = _fit(entry)
     log(f"program fit {time.perf_counter() - t0:.3f} s", file=sys.stderr)
     del entry.ivf
-    qcfg = ivf_query.query_config(entry.config)
+    qcfg = entries.query_config(entry.config)
     index = ref.derive(entry.X, fit["centers"], fit["codebooks"], qcfg,
                        ref.Precision())
     low = ref.derive(entry.X, fit["centers"], fit["codebooks"], qcfg,
@@ -89,10 +91,10 @@ def run(cell_name: str, seeds, *, bench_file: Path,
             np.random.default_rng(seed).permutation(n)[:Q]).to(Qf.device)
         ids, _ = ref.answers(low, Qf[rows], qcfg, ref.Precision(lower=True),
                              Q=Q)
-        numbers, _ = ivf_query.judge_numbers(
+        numbers, _ = entries.judge_numbers(
             index, qcfg, Q, Qf, claims, ids, rows,
             torch.ones(Q, dtype=torch.float64, device=Qf.device), wl["tau"])
-        numbers.update(ivf_query.fit_numbers(
+        numbers.update(entries.fit_numbers(
             index, claims, seed, qcfg["metric"] == "angular"))
         correct, checks = judge.decide(numbers, wl["limits"])
         out.append((seed, numbers, correct, checks))
@@ -103,16 +105,15 @@ def cut_fit(cell_name: str, iters: int, seeds, *, bench_file: Path,
             device="cuda", override=None) -> list:
     """[(seed, fit numbers)] of the program's fit cut to ``iters`` Lloyd
     passes: the fault that the fit numbers have to catch."""
-    from gpubench.entries import ivf_query
     from gpubench.reference import ivf as ref
-    entry, _, _ = _cell(cell_name, bench_file, device, override)
+    entries, entry, _, _ = _cell(cell_name, bench_file, device, override)
     fit = _fit(entry, iters)
     del entry.ivf
-    qcfg = ivf_query.query_config(entry.config)
+    qcfg = entries.query_config(entry.config)
     index = ref.derive(entry.X, fit["centers"], fit["codebooks"], qcfg,
                        ref.Precision())
-    return [(seed, ivf_query.fit_numbers(index, fit, seed,
-                                         qcfg["metric"] == "angular"))
+    return [(seed, entries.fit_numbers(index, fit, seed,
+                                       qcfg["metric"] == "angular"))
             for seed in seeds]
 
 

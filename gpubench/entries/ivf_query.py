@@ -2,8 +2,13 @@
 queried as a configuration says, and judged against the plain reference
 (reference/ivf.py). The only module of the benchmark that imports the
 program; from it the benchmark takes the index and its query, the
-kernels' launch counters and their names, and, to judge the build, the
-index's state after the window."""
+kernels' launch counters and their names, the query's pass counters,
+and, to judge the build, the index's state after the window.
+
+A configuration may give ``index.rotate_dim``: FastPQ's projection of
+the vectors to that many dimensions (null: none; absent: FastPQ's
+default of 64, which FastPQ skips at a raw dimension of 100). The
+reference draws the same projection from it and ``PQ_SEED``."""
 
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ from ..reference import ivf as ref
 # each launch runs (the name the profiler's trace shows)
 KERNELS = {"scan_fold_csr": "scan_fold_csr_kernel",
            "scan_exact_csr": "scan_exact_csr_kernel"}
+PQ_SEED = 0        # FastPQ's seed: its codebooks' k-means and projection
+ROTATE_DIM = 64    # FastPQ's default rotate_dim
 
 
 def query_config(config: dict) -> dict:
@@ -29,7 +36,8 @@ def query_config(config: dict) -> dict:
     ix = config["index"]
     return dict(config["query"], metric=config["dataset"]["metric"],
                 engine="exact" if ix["scan_impl"] == "exact" else "pq",
-                build_probes=ix["build_probes"], fold_mult=ix["fold_mult"])
+                build_probes=ix["build_probes"], fold_mult=ix["fold_mult"],
+                rotate_dim=ix.get("rotate_dim", ROTATE_DIM), pq_seed=PQ_SEED)
 
 
 def _sync(device):
@@ -55,7 +63,8 @@ class Entry:
         self.X = torch.from_numpy(data).to(self.device)
         self.ivf = IVF(ds["metric"], ix["n_clusters"],
                        FastPQ(ix["dims_per_block"],
-                              table_dtype=ix["table_dtype"],
+                              rotate_dim=query_config(config)["rotate_dim"],
+                              seed=PQ_SEED, table_dtype=ix["table_dtype"],
                               device=self.device),
                        scan_impl=ix["scan_impl"], fold_mult=ix["fold_mult"],
                        device=self.device)
@@ -83,9 +92,14 @@ class Entry:
 
     @staticmethod
     def counters() -> dict:
-        """Kernel launches so far, by kernel."""
+        """Kernel launches so far, by kernel, and the program's own
+        counters (``utils.timing.counters``: ``query.attempts``,
+        ``query.rescued_pairs``, ...) as far as it keeps them."""
         from tinyknn_tpu_torch.ops import kernels
-        return {name: getattr(kernels, name).launches for name in KERNELS}
+        from tinyknn_tpu_torch.utils import timing
+        out = {name: getattr(kernels, name).launches for name in KERNELS}
+        out.update(timing.counters)
+        return out
 
     def claims(self) -> dict:
         """The index as built, one row per occupied list slot: the point
@@ -150,6 +164,8 @@ class Entry:
         batch = torch.from_numpy(out.rows[0]).to(self.device)
         view = SimpleNamespace(
             counts=index.counts, dim=self.config["dataset"]["dim"],
+            code_dim=(index.R.shape[0] if index.R is not None
+                      else self.config["dataset"]["dim"]),
             probes=ref.nearest(qn[batch], index.centers[index.active],
                                min(qcfg["n_probes"], index.active.shape[0]),
                                ref.Precision()),
@@ -186,8 +202,9 @@ def judge_numbers(index, qcfg: dict, Q: int, Qf, claims: dict, ids, rows,
 
 def fit_numbers(index, claims: dict, seed: int, angular: bool) -> dict:
     """The fit judged by itself: the inertia of the program's coarse
-    centers, and of its codebooks block by block, over that of the
-    reference's own k-means of the same data, seeded from the run."""
+    centers, and of its codebooks block by block over the projected
+    block columns, over that of the reference's own k-means of the same
+    data, seeded from the run."""
     gen = torch.Generator(device=index.data.device).manual_seed(seed)
     x = index.data
     centers = claims["centers"]
@@ -196,7 +213,8 @@ def fit_numbers(index, claims: dict, seed: int, angular: bool) -> dict:
         own = ref.normalize(own)
     cb = claims["codebooks"]
     B, _, dpb = cb.shape
-    cols = ref.pad_blocks(x, B, dpb).transpose(0, 1).contiguous()
+    cols = ref.pad_blocks(ref.coded(x, index.R, ref.Precision()), B,
+                          dpb).transpose(0, 1).contiguous()
     theirs = ref.block_inertia(cols, cb)
     mine = ref.block_inertia(cols, ref.block_kmeans(cols, cb.shape[1], gen))
     real = mine > 0

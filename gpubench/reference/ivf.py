@@ -15,6 +15,17 @@ judged by itself: the inertia of the program's centers and codebooks
 against that of the reference's own k-means (``kmeans``,
 ``block_kmeans``) on the same data.
 
+The random projection is the other departure the reference takes over
+from the program: FastPQ's published recipe (``projection``), drawn here
+from the configuration's ``rotate_dim`` and the PQ's seed, never read
+from the program. For a raw dimension other than 100 FastPQ pads the
+columns to a multiple of ``BLOCK_PAD * dims_per_block``, draws
+``np.random.default_rng(seed)`` standard normals of that square shape,
+takes their QR, and keeps the first ``round_up(rotate_dim, BLOCK_PAD *
+dims_per_block)`` rows of ``q.T`` in f32 as ``R``. The lists, the probes
+and the rescore stay in the raw space; the codes are those of ``x_pad @
+R.T``, the tables those of ``q_pad @ R.T`` (``coded``).
+
 ``Precision(lower=True)`` is the control: the same computation one step
 below the stated precision, f32 products on operands rounded to TF32's
 10-bit mantissa and bf16 vectors stored as fp8 (e4m3).
@@ -25,9 +36,11 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 LANE = 128
+BLOCK_PAD = 8                 # the coded width is a multiple of 8 blocks
 LN2 = 0.6931471805599453
 POS_BITS = 20                 # key = value << POS_BITS | position in list
 INVALID = 1 << 62             # key of an empty slot or fold class
@@ -85,13 +98,43 @@ def nearest(x, c, m: int, prec: Precision, chunk: int = 32768):
 
 
 def pad_blocks(x, n_blocks: int, dpb: int):
-    """Zero columns up to ``n_blocks * dpb``; (n, n_blocks, dpb)."""
-    x = torch.nn.functional.pad(x, (0, n_blocks * dpb - x.shape[1]))
+    """Zero columns up to ``n_blocks * dpb``; (n, n_blocks, dpb). Raises
+    on wider input: its columns have to be projected (``coded``) first,
+    never cropped."""
+    width = n_blocks * dpb
+    if x.shape[1] > width:
+        raise ValueError(f"{x.shape[1]} columns do not fit {n_blocks} "
+                         f"blocks of {dpb}: project them first")
+    x = torch.nn.functional.pad(x, (0, width - x.shape[1]))
     return x.reshape(x.shape[0], n_blocks, dpb)
 
 
+def projection(d: int, dpb: int, rotate_dim, seed: int, device):
+    """FastPQ's random projection (rotate_dim, d_pad) f32 of ``d`` raw
+    dimensions, or None where it draws none: ``rotate_dim`` None, or d
+    100 (the GloVe case)."""
+    if rotate_dim is None or d == 100:
+        return None
+    m = BLOCK_PAD * dpb
+    n = round_up(d, m)
+    q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((n, n)))
+    R = np.ascontiguousarray(q.T, dtype=np.float32)[:round_up(rotate_dim, m)]
+    return torch.as_tensor(R, device=device)
+
+
+def coded(x, R, prec: Precision):
+    """The columns the PQ codes: ``x`` itself without a projection, else
+    ``x`` padded to ``R``'s input width and projected, ``x_pad @ R.T``,
+    in one product over all rows as the program makes it."""
+    if R is None:
+        return x
+    x = torch.nn.functional.pad(x, (0, R.shape[1] - x.shape[1]))
+    return prec.mm(x) @ prec.mm(R).T
+
+
 def encode(x, codebooks, prec: Precision, chunk: int = 65536):
-    """uint8 (n, B): each block's nearest of its 16 codebook entries."""
+    """uint8 (n, B): each block's nearest of its 16 codebook entries,
+    of the coded columns ``x`` (``coded``)."""
     B, _, dpb = codebooks.shape
     cn = (codebooks * codebooks).sum(-1)
     cb = prec.mm(codebooks)
@@ -104,9 +147,10 @@ def encode(x, codebooks, prec: Precision, chunk: int = 65536):
 
 
 def int8_tables(q, codebooks, prec: Precision):
-    """(Q, B, 16) int32 values of the signed int8 distance tables:
-    squared block distances, shifted by ln2 times their mean, scaled so
-    the largest is 128 / sqrt(B), rounded half to even, clipped."""
+    """(Q, B, 16) int32 values of the signed int8 distance tables of the
+    coded queries ``q`` (``coded``): squared block distances, shifted by
+    ln2 times their mean, scaled so the largest is 128 / sqrt(B), rounded
+    half to even, clipped."""
     B, _, dpb = codebooks.shape
     qb = pad_blocks(q, B, dpb)
     qn = (qb * qb).sum(-1)
@@ -159,12 +203,14 @@ class Index(NamedTuple):
     aug: torch.Tensor | None  # (n, d_aug) bf16, exact engine
     centers: torch.Tensor    # (n_clusters, d) f32 (the fit's)
     codebooks: torch.Tensor  # (B, 16, dpb) f32 (the fit's)
+    R: torch.Tensor | None   # (B dpb, d_pad) f32, FastPQ's projection
 
 
 def derive(data_raw, centers, codebooks, cfg: dict, prec: Precision) -> Index:
     """The index the configuration defines over ``data_raw`` from the
     fit's centers and codebooks. A point sits in the lists of its
-    ``build_probes`` nearest centers, in ascending id order in each."""
+    ``build_probes`` nearest centers, in ascending id order in each; its
+    codes are those of its projection (``projection``, ``coded``)."""
     fp32_products()
     x = normalize(data_raw) if cfg["metric"] == "angular" else data_raw
     bp = cfg["build_probes"]
@@ -184,10 +230,12 @@ def derive(data_raw, centers, codebooks, cfg: dict, prec: Precision) -> Index:
     members = torch.full((active.shape[0], max_tiles * LANE), -1,
                          dtype=torch.int64, device=x.device)
     members[lists, pos] = point[order]
-    codes = encode(x, codebooks, prec)
+    R = projection(x.shape[1], codebooks.shape[2], cfg["rotate_dim"],
+                   cfg["pq_seed"], x.device)
+    codes = encode(coded(x, R, prec), codebooks, prec)
     aug = augment(x, prec) if cfg["engine"] == "exact" else None
     return Index(x, assign, active, members, counts, max_tiles, codes, aug,
-                 centers, codebooks)
+                 centers, codebooks, R)
 
 
 class Plan(NamedTuple):
@@ -280,13 +328,15 @@ def answers(index: Index, queries_raw, cfg: dict, prec: Precision,
     exact = cfg["engine"] == "exact"
     q_all = (normalize(queries_raw) if cfg["metric"] == "angular"
              else queries_raw)
+    q_code = None if exact else coded(q_all, index.R, prec)
     act = index.centers[index.active]
     ids_out, d_out = [], []
     for c0 in range(0, q_all.shape[0], chunk):
         q = q_all[c0:c0 + chunk]
         probes = nearest(q, act, P, prec)             # (Qc, P)
         side = (augment_queries(q, prec).float() if exact
-                else int8_tables(q, index.codebooks, prec))
+                else int8_tables(q_code[c0:c0 + chunk], index.codebooks,
+                                 prec))
         keys = [_list_keys(index, cfg, probes[:, j], side, prec)
                 for j in range(P)]
         pool = torch.cat([_fold(keys[0], pl.fold0, index.max_tiles)]

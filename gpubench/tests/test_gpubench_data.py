@@ -61,6 +61,7 @@ class View:
     counts = torch.tensor([100, 300, 7])
     probes = torch.tensor([[0, 1], [1, 1]])
     dim = 100
+    code_dim = 100
     dims_per_block = 2
     pass_1 = 20
 

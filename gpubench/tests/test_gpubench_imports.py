@@ -27,7 +27,7 @@ def test_no_jax_and_a_plain_reference(path):
     names = imported(path)
     assert not names & {"jax", "jaxlib", "flax", "tinyknn_tpu"}
     if "reference" in path.parts:
-        assert names <= {"__future__", "math", "typing", "torch"}
+        assert names <= {"__future__", "math", "typing", "numpy", "torch"}
 
 
 def test_the_whole_name_is_compared():

@@ -2,6 +2,7 @@
 CPU, and the fit that it takes from the program, checked by itself."""
 
 import numpy as np
+import pytest
 import torch
 
 from gpubench.data import make_clustered
@@ -40,3 +41,9 @@ def test_the_programs_fit_is_a_k_means_fit():
     # the codebooks are each block's k-means of its column: every code
     # value is used and no codebook entry lies far from its points
     assert codes.unique().numel() == 16
+
+
+def test_pad_blocks_pads_and_never_crops():
+    assert ref.pad_blocks(torch.ones(3, 100), 56, 2).shape == (3, 56, 2)
+    with pytest.raises(ValueError, match="project"):
+        ref.pad_blocks(torch.ones(3, 128), 32, 2)

@@ -1,7 +1,6 @@
 """Whole runs of each cell at a small size on the CPU: sound runs come
 out correct; the control and runs with the timed path broken do not."""
 
-import json
 import subprocess
 import sys
 
@@ -10,10 +9,10 @@ import pytest
 import torch
 
 from gpubench import control
-from gpubench.tests.smallrun import BENCH, CHECKOUT, override, quiet, run
+from gpubench.tests.smallrun import (BENCH, CHECKOUT, cells, override,
+                                     pq_cells, quiet, run, scan_impl)
 
-CELLS = [w["name"] for w in json.loads(BENCH.read_text())["workloads"]]
-PQ, EXACT = CELLS
+CELLS = cells()
 FIT = ("centers_fit_off", "codebooks_fit_off")
 
 
@@ -29,15 +28,17 @@ def test_a_sound_run_is_correct(cell):
     assert all(c["value"] == 0.0 for name, c in r["checks"].items()
                if name not in FIT)
     assert 0.5 < r["metrics"]["recall10_at_10"]["value"] < 1.0 or \
-        "exact" in cell
+        scan_impl(cell) == "exact"
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_traced_run_reports_the_per_layer_metrics(cell):
     r = run(cell, trace=True)
     assert r["correct"]
-    assert {"kmeans_fit_s", "list_build_s",
-            "scan_launches_per_batch"} <= set(r["metrics"])
+    assert {"kmeans_fit_s", "list_build_s", "scan_launches_per_batch",
+            "query_attempts_per_batch",
+            "rescued_pairs_per_batch"} <= set(r["metrics"])
+    assert r["metrics"]["query_attempts_per_batch"]["value"] >= 1.0
     assert r["device"]["window_s"] > 0 and "breakdown" in r
 
 
@@ -107,8 +108,9 @@ def test_a_broken_timed_path_is_not_correct(cell, fault):
     assert not run(cell, fault=fault)["correct"]
 
 
-def test_a_cut_fit_fails_the_fit_numbers():
-    checks = run(PQ, fault=one_lloyd_pass)["checks"]
+@pytest.mark.parametrize("cell", pq_cells())
+def test_a_cut_fit_fails_the_fit_numbers(cell):
+    checks = run(cell, fault=one_lloyd_pass)["checks"]
     assert all(checks[n]["value"] > checks[n]["limit"] for n in FIT)
     assert checks["answers_off"]["value"] == 0.0
 
@@ -122,11 +124,12 @@ def test_the_control_is_not_correct(cell):
     assert numbers["answers_off"] > 0.02
 
 
-def test_run_py_without_a_card_prints_no_result():
+@pytest.mark.parametrize("cell", CELLS)
+def test_run_py_without_a_card_prints_no_result(cell):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
     p = subprocess.run([sys.executable, "gpubench/run.py", "--workload",
-                        PQ, "--seed", "1", "--seconds", "1", "--trace", "0"],
+                        cell, "--seed", "1", "--seconds", "1", "--trace", "0"],
                        cwd=CHECKOUT, capture_output=True, text=True,
                        timeout=300)
     assert p.returncode != 0
