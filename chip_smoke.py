@@ -28,14 +28,17 @@ In order, and stopping at the first failure with a non-zero exit:
    int8 p1=21), grades recall10@10 against the checked-in f64 ground
    truth, checks K1 ran on every query with as many launches in the
    warm batch as in the first, and repeats the K1 check on each K1 shape
-   the path gave (round 0 at 32 slots and its overflow grid of 32
-   one-slot lists, with the batch's own slot counts), timing K1 against
-   its plain version there; then a skewed batch (the 10k queries and
-   200 near-copies of the first) must overflow the grid too, retry
-   (4x, then the can't-drop caps), drop no pair and answer as at the
-   caps (on the exact engine of phase 5 the scan budget clamps the
-   caps below the fullest list, and it must drop just what they cannot
-   hold), and the retry's K1 shapes are held and timed as well;
+   the path gave (round 0 at 32 slots and its overflow grid of one-slot
+   lists, with the batch's own slot counts), timing K1 against its
+   plain version there; then a skewed batch (the 10k queries and 200
+   near-copies of the first), its can't-drop caps clamped by the scan
+   budget below the fullest list, must overflow the grid too, retry
+   (4x, then the caps), scan the pairs past the caps in the caps pass's
+   overflow grid, drop and lose no pair, and answer as at capacities
+   that hold every pair with no grid (on the exact engine of phase 5
+   the budget clamps the caps by itself), and the retries' K1 shapes,
+   the caps pass's grid with its occupied slots among them, are held
+   and timed as well;
 4b. serving path, on the same index: ``query_stream`` at int8 p1=84 and
    bf16 p1=17 (the 10k queries stacked R = 2 and 7 times, as bench.py
    builds its streams; batch 0 must equal ``query()``'s ids, no pair may
@@ -50,6 +53,14 @@ In order, and stopping at the first failure with a non-zero exit:
    ``tune_n_probes`` (recall >= 0.9; each K1 shape it gives, the tail
    round of P=2 included, against the plain version), ``save_ivf`` ->
    ``load_ivf`` (identical ids) and ``Flat`` (recall >= 0.999);
+4c. SIFT-1M's widths: IVF("euclidean", 100, FastPQ(2)) on a clustered
+   100,000 x 128 corpus (FastPQ projects 128 to 64 dimensions: 32 real
+   blocks), a skewed batch of 1,000 queries and 1,000 near-copies at
+   P=6, pass_1 284, its caps clamped below the fullest list of both
+   rounds: three passes, no pair lost, the ids of capacities that hold
+   every pair, and every K1 shape it gave (round 0, the P=6 tail round,
+   the retries and all four overflow grids) held against the plain
+   version;
 5. exact path: switches that index to the exact engine (build_probes=1,
    P=1), then rebuilds it with build_probes=2 (P=1 and P=2), grades
    recall10@10, checks K2 ran, and holds and times K2 against its plain
@@ -175,6 +186,12 @@ K3_QUERIES = 1000
 # near-copies of the first, past round 0's 32 slots and its
 # overflow grid's 32, so that IVF.query escalates (4x, then the caps)
 SKEW_NEAR = 200
+# phase 4c: K1 at the widths of the SIFT-1M deployment (128 dims that
+# FastPQ(2) projects to 64, 32 real blocks; P=6, pass_1 284), on about
+# 1,000 points a list as at its 1,000 lists, with enough near-copies
+# that the first pass's grid of the P=6 tail round overflows too
+SIFT_SHAPE = dict(size=100_000, dim=128, n_queries=1_000, n_clusters=100,
+                  n_probes=6, pass_1=284, near=1_000)
 STREAM_POINTS = (("int8", 84), ("bf16", 17))
 STREAM_REPS = (2, 7)
 GATHER_QS = (1, 8, 64)
@@ -800,8 +817,8 @@ def capture_first(module, name: str, store: dict, key=by_dtype):
     return undo
 
 
-def skewed_batch(queries):
-    """The queries and ``SKEW_NEAR`` near-copies of the first of them
+def skewed_batch(queries, n: int = SKEW_NEAR):
+    """The queries and ``n`` near-copies of the first of them
     (1% noise), which all land in its list. A query, not a corpus point:
     near a corpus point the exact engine's distances fall near 0, where
     K2 and its plain version, adding the same products in another
@@ -809,65 +826,92 @@ def skewed_batch(queries):
     rng = np.random.default_rng(0)
     x = np.asarray(queries[0], np.float32)
     near = x + 0.01 * np.abs(x).mean() * rng.standard_normal(
-        (SKEW_NEAR, x.shape[0]))
+        (n, x.shape[0]))
     return np.concatenate([np.asarray(queries, np.float32),
                            near.astype(np.float32)])
 
 
-def skewed_check(ivf, skew, p1, label: str, card: str) -> dict:
+def skewed_check(ivf, skew, p1, label: str, card: str,
+                 clamp: bool = False) -> dict:
     """IVF.query's escalation on a skewed batch at P=1: the overflow
     grid overflows too, so the query retries (attempts >= 2) and ends
-    at the can't-drop caps. It drops what the caps cannot hold, counted
-    here from the probe selection (none unless ``scan_budget_bytes``
-    clamps them below the fullest list), and answers as the same batch
-    at the caps does. Returns the capacities of the 4x retry and the
+    at the can't-drop caps. ``clamp`` clamps those caps, by
+    ``scan_budget_bytes``, to twice round 0's capacity, below the
+    fullest list (the exact engine's budget clamps them by itself).
+    What the caps cannot hold (counted here from the probe selection)
+    the last pass scans in its overflow grid, so it drops and loses no
+    pair, rescues just those past the caps besides the first pass's
+    grid, and answers as the same batch at capacities that hold every
+    pair, with no grid. Returns the capacities of the 4x retry and the
     caps, the counts, and the warm time."""
     import torch
     import tinyknn_tpu_torch.models.ivf as ivf_module
     from tinyknn_tpu_torch.utils.timing import counters
     run = lambda: ivf.query(skew, k=10, n_probes=1, pass_1=p1,  # noqa
                             mode="bucket", with_stats=True)
-    before = dict(counters)
-    (ids, stats), t_cold = timed(run)
-    delta = {key: counters[key] - before[key] for key in before}
-    (ids, stats), t_warm = timed(run)
     Q = skew.shape[0]
+    C = ivf.active_centers.shape[0]
     k, P, pass_1, r, r_tail, qc, qc0 = ivf_module._query_params(
         ivf, Q, 10, 1, p1)
-    caps = ivf_module._qc_caps(ivf, Q, P, r, r_tail, qc, qc0)
+    budget = ivf.scan_budget_bytes
+    if clamp:
+        s0_w = ivf_module._fold_tiles(r, ivf.max_tiles,
+                                      ivf.fold_mult) * ivf_module.LANE_TILE
+        ivf.scan_budget_bytes = 4 * C * s0_w * 2 * qc0
+    try:
+        caps = ivf_module._qc_caps(ivf, Q, P, r, r_tail, qc, qc0)
+        before = dict(counters)
+        (ids, stats), t_cold = timed(run)
+        delta = {key: counters[key] - before[key] for key in before}
+        (ids, stats), t_warm = timed(run)
+    finally:
+        ivf.scan_budget_bytes = budget
     retry_qc0 = min(-(-4 * qc0 // 8) * 8, caps[1])
     qd = torch.as_tensor(skew, device=ivf.device)
     lists = ivf_module._probe_select(ivf_module._normalize(qd, ivf.metric),
                                      ivf.active_centers, 1)[:, 0]
-    load = torch.bincount(lists, minlength=ivf.active_centers.shape[0])
+    load = torch.bincount(lists, minlength=C)
     left = int((load - caps[1]).clamp(min=0).sum())
-    want, drops = ivf._bucket_query(qd, (k, P, pass_1, r, r_tail, *caps),
-                                    ivf._scan_engine())
+    # the first pass's grid takes up to max(qc, qc0) of its drops
+    first = min(int((load - qc0).clamp(min=0).sum()), max(qc, qc0))
+    hold = -(-int(load.max()) // 8) * 8
+    want, drops = ivf._bucket_query(qd, (k, P, pass_1, r, r_tail, hold,
+                                         hold), ivf._scan_engine())
     same = bool(torch.equal(ids, want))
     print(f"  {label} skewed batch ({Q - SKEW_NEAR} queries + {SKEW_NEAR} "
           f"near-copies, fullest list {int(load.max())}): attempts "
           f"{delta['query.attempts']}, rescued "
-          f"{delta['query.rescued_pairs']}, dropped in passes "
+          f"{delta['query.rescued_pairs']} ({first} in the first pass, "
+          f"{left} past the caps), dropped in passes "
           f"{delta['query.dropped_pairs']}, dropped pairs "
-          f"{stats['dropped_probe_pairs']} (past the caps {left}); qc0 "
-          f"{qc0} -> 4x {retry_qc0} -> used "
-          f"{stats['queries_per_cluster_cap_round0']} (caps {caps[1]}); "
-          f"ids equal to the caps' {same}; query {t_warm:.4f} s warm, "
+          f"{stats['dropped_probe_pairs']}, lost "
+          f"{delta['query.lost_pairs']}; qc0 {qc0} -> 4x {retry_qc0} -> "
+          f"used {stats['queries_per_cluster_cap_round0']} (caps "
+          f"{caps[1]}{', clamped' if clamp else ''}); ids equal to those "
+          f"at {hold} slots a list {same}; query {t_warm:.4f} s warm, "
           f"{t_cold:.4f} s first {card}")
     if delta["query.attempts"] < 2 or not delta["query.rescued_pairs"]:
         raise AssertionError(f"{label}: the skewed batch did not escalate "
                              f"past its overflow grid: {delta}")
-    if not stats["dropped_probe_pairs"] == int(drops) == left:
+    if clamp and not left:
+        raise AssertionError(f"{label}: the clamped caps hold every pair")
+    if not (stats["dropped_probe_pairs"] == int(drops) == 0
+            == delta["query.lost_pairs"]
+            and delta["query.rescued_pairs"] == first + left):
         raise AssertionError(f"{label}: the skewed batch dropped "
-                             f"{stats['dropped_probe_pairs']} pairs, "
-                             f"{int(drops)} at the caps, {left} past them")
+                             f"{stats['dropped_probe_pairs']} pairs, lost "
+                             f"{delta['query.lost_pairs']} and rescued "
+                             f"{delta['query.rescued_pairs']}, of {first} "
+                             f"+ {left}; {int(drops)} dropped at {hold} "
+                             f"slots")
     if not same:
         raise AssertionError(f"{label}: the skewed batch's ids differ from "
-                             f"those at the can't-drop caps")
+                             f"those at capacities that hold every pair")
     return dict(attempts=delta["query.attempts"],
                 rescued=delta["query.rescued_pairs"],
                 pass_drops=delta["query.dropped_pairs"],
                 dropped=stats["dropped_probe_pairs"],
+                lost=delta["query.lost_pairs"], past_caps=left,
                 fullest_list=int(load.max()), qc0=qc0, retry_qc0=retry_qc0,
                 used_qc0=stats["queries_per_cluster_cap_round0"],
                 caps_qc0=caps[1], query_s=t_warm, first_query_s=t_cold)
@@ -927,7 +971,7 @@ def pq_path(ivf, data, queries, truth, card):
     table_dtype, p1, _ = POINTS[0]
     ivf.pq.table_dtype = table_dtype
     skewed = skewed_check(ivf, skewed_batch(queries), p1,
-                          f"{table_dtype} p1={p1}", card)
+                          f"{table_dtype} p1={p1}", card, clamp=True)
     launches = read_counts("PQ path")["scan_fold_csr"]
     undo()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -967,6 +1011,90 @@ def pq_path(ivf, data, queries, truth, card):
     summary = {"fit_s": t_fit, "build_s": t_build, "queries": results,
                "skewed": skewed, "peak_gib": peak_gb}
     return summary, launches, err, calls
+
+
+def sift_shape_path(device, card, shape=SIFT_SHAPE):
+    """Phase 4c: K1 at the SIFT-1M deployment's widths. IVF("euclidean")
+    with FastPQ(2), whose default projection codes 128 dimensions as 64
+    (32 real blocks), queried at P=6 and pass_1 284 with a skewed batch
+    (``skewed_batch``, ``near`` near-copies) whose caps are clamped, by
+    ``scan_budget_bytes``,
+    to the first pass's tail capacity, below the fullest list of both
+    rounds: the caps pass scans the rest in both rounds' overflow grids.
+    The batch must make three passes, lose no pair and answer as at
+    capacities that hold every pair; every K1 shape it gave (round 0,
+    the P=6 tail round, their overflow grids, the 4x retry and the caps)
+    is held against the plain version. Returns (summary, max value
+    error)."""
+    import torch
+    import tinyknn_tpu_torch.models.ivf as ivf_module
+    from tinyknn_tpu_torch import IVF, FastPQ, make_clustered
+    from tinyknn_tpu_torch.utils.timing import counters
+    data, queries = make_clustered(shape["size"], shape["dim"],
+                                   shape["n_queries"])
+    ivf = IVF("euclidean", shape["n_clusters"], FastPQ(2, device=device),
+              device=device)
+    (_, t_fit), (_, t_build) = (timed(lambda: ivf.fit(data)),
+                                timed(lambda: ivf.build(data, n_probes=1)))
+    skew = skewed_batch(queries, shape["near"])
+    Q, P = skew.shape[0], shape["n_probes"]
+    C = ivf.active_centers.shape[0]
+    k, _, pass_1, r, r_tail, qc, qc0 = ivf_module._query_params(
+        ivf, Q, 10, P, shape["pass_1"])
+    blocks = ivf.pq.center_blocks.shape[0]
+    qd = torch.as_tensor(skew, device=ivf.device)
+    probes = ivf_module._probe_select(qd, ivf.active_centers, P)
+    loads = (torch.bincount(probes[:, 1:].reshape(-1), minlength=C),
+             torch.bincount(probes[:, 0], minlength=C))   # tail, round 0
+    hold = [-(-int(load.max()) // 8) * 8 for load in loads]
+    want, drops = ivf._bucket_query(qd, (k, P, pass_1, r, r_tail, *hold),
+                                    "fused")
+    st_w = ivf_module._fold_tiles(r_tail, ivf.max_tiles,
+                                  ivf.fold_mult) * ivf_module.LANE_TILE
+    budget = ivf.scan_budget_bytes
+    ivf.scan_budget_bytes = 4 * C * st_w * qc
+    captured = {}                       # first K1 call of each shape
+    undo = capture_first(ivf_module, "scan_fold_csr", captured, by_shape)
+    try:
+        caps = ivf_module._qc_caps(ivf, Q, P, r, r_tail, qc, qc0)
+        before = dict(counters)
+        (ids, stats), t_query = timed(lambda: ivf.query(
+            skew, k=10, n_probes=P, pass_1=shape["pass_1"], mode="bucket",
+            with_stats=True))
+        delta = {key: counters[key] - before[key] for key in before}
+    finally:
+        undo()
+        ivf.scan_budget_bytes = budget
+    left = [int((load - cap).clamp(min=0).sum())
+            for load, cap in zip(loads, caps)]
+    same = bool(torch.equal(ids, want))
+    grids = {key[1]: int(kw["slot_counts"].sum())
+             for key, (_, kw) in captured.items() if key[1][0] != C}
+    print(f"SIFT shape: fit {t_fit:.3f} s, build {t_build:.3f} s {card}; "
+          f"{C} lists, {blocks} real blocks, max_tiles {ivf.max_tiles}; "
+          f"skewed batch of {Q} at P={P}, pass_1 {pass_1}: attempts "
+          f"{delta['query.attempts']}, rescued "
+          f"{delta['query.rescued_pairs']}, lost "
+          f"{delta['query.lost_pairs']}; capacities (qc, qc0) ({qc}, {qc0})"
+          f" -> caps {caps} clamped, fullest lists {hold}, past the caps "
+          f"{left}; overflow grids (shape: occupied slots) {grids}; ids "
+          f"equal to those at {hold} slots {same}; query {t_query:.4f} s "
+          f"first {card}")
+    if blocks != 32 or delta["query.attempts"] != 3 or min(left) <= 0:
+        raise AssertionError(f"SIFT shape: {blocks} blocks, "
+                             f"{delta['query.attempts']} passes, {left} "
+                             f"pairs past the caps")
+    if not (stats["dropped_probe_pairs"] == int(drops) == 0
+            == delta["query.lost_pairs"]) or not same:
+        raise AssertionError(f"SIFT shape: dropped "
+                             f"{stats['dropped_probe_pairs']}, lost "
+                             f"{delta['query.lost_pairs']}, ids equal "
+                             f"{same}")
+    err = hold_captured("SIFT shape", captured)
+    return dict(fit_s=t_fit, build_s=t_build, blocks=blocks, caps=caps,
+                past_caps=left, rescued=delta["query.rescued_pairs"],
+                grids={str(key): n for key, n in grids.items()},
+                query_s=t_query), err
 
 
 def best_of(fn, reps: int = 3) -> float:
@@ -2468,13 +2596,16 @@ def examples_path(tmp: Path, archive: Path, archive_bp2: Path, pq_sum: dict,
     return summary, launched, err
 
 
-def first_timed(calls: dict, name: str, dtype, qc=None):
+def first_timed(calls: dict, name: str, dtype, qc=None, grid=False):
     """The reading of the first timed shape of ``dtype`` (and ``qc``
-    slots, unless None) among a path's ``by_shape`` calls."""
+    slots, unless None) among a path's ``by_shape`` calls: of the
+    index's lists or, with ``grid``, of an overflow grid's."""
     for (dt, shape, _), row in calls.items():
-        if dt == dtype and qc in (None, shape[1]):
+        if (dt == dtype and qc in (None, shape[1])
+                and grid == (shape[0] != GLOVE["n_clusters"])):
             return row
-    raise AssertionError(f"no {dtype} {name} call with {qc} slots was timed")
+    raise AssertionError(f"no {dtype} {name} call with {qc} slots"
+                         f"{' in a grid' if grid else ''} was timed")
 
 
 def main() -> int:
@@ -2547,6 +2678,10 @@ def run(tmp: Path) -> int:
                                                card, archive)
     err["scan_fold_csr"] = max(err["scan_fold_csr"], e1)
 
+    # -- 4c. K1 at the SIFT-1M deployment's widths, on an index of its own
+    sift_sum, e1 = sift_shape_path(device, card)
+    err["scan_fold_csr"] = max(err["scan_fold_csr"], e1)
+
     # -- 5. exact path (K2), with its serving surface (5b)
     exact_sum, k2_launches, e2, k2_calls, k2_serving = exact_path(
         ivf, data, queries, truth, card)
@@ -2579,16 +2714,17 @@ def run(tmp: Path) -> int:
         err[kname] = max(err[kname], e)
 
     r0 = first_timed(k1_calls, "K1", torch.int8, 32)
-    over = first_timed(k1_calls, "K1", torch.int8, 1)
+    over = first_timed(k1_calls, "K1", torch.int8, grid=True)
     retry = first_timed(k1_calls, "K1", torch.int8,
                         pq_sum["skewed"]["retry_qc0"])
     bf = first_timed(k1_calls, "K1", torch.bfloat16)
     e_r0 = first_timed(k2_calls, "K2", torch.bfloat16, 32)
-    e_over = first_timed(k2_calls, "K2", torch.bfloat16, 1)
+    e_over = first_timed(k2_calls, "K2", torch.bfloat16, grid=True)
     e_retry = first_timed(k2_calls, "K2", torch.bfloat16,
                           exact_sum["skewed"]["retry_qc0"])
     print(f"all phases: {time.perf_counter() - t_run:.1f} s {card}")
     print(json.dumps({"pq_path": pq_sum, "serving_path": serving_sum,
+                      "sift_shape_path": sift_sum,
                       "exact_path": exact_sum,
                       "full_scan": fs_sum, "k3_real_size": k3_sum,
                       "sharded_path": sharded_sum,

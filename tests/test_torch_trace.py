@@ -1,7 +1,7 @@
 """The query path's stage spans and counters (utils/timing.py): the
 ``tinyknn.*`` ranges a ``torch.profiler`` session records inside
 ``IVF.query`` and ``IVF.query_stream``, the one check a span costs with
-no session, and ``counters``' passes and dropped pairs."""
+no session, and ``counters``' passes, dropped and lost pairs."""
 
 import json
 
@@ -124,13 +124,15 @@ def test_a_retry_counts_its_pass_and_the_first_pass_drops(index):
     (_, stats), delta = holder["out"]
     assert stats["dropped_probe_pairs"] == 0
     assert stats["queries_per_cluster_cap_round0"] > params[6]
-    # each round's overflow grid (qc0 and qc entries) rescues what it
-    # holds; the drops past it are counted and send the batch to the retry
+    # each round's overflow grid (room for max(qc, qc0) pairs) rescues
+    # what it holds; the drops past it are counted and send the batch to
+    # the retry
     assert delta["query.attempts"] == 2
-    assert 0 < delta["query.rescued_pairs"] <= params[5] + params[6]
+    assert 0 < delta["query.rescued_pairs"] <= 2 * max(params[5:])
     assert delta["query.dropped_pairs"] > 0
     assert (delta["query.dropped_pairs"] + delta["query.rescued_pairs"]
             == first_drops)
+    assert delta["query.lost_pairs"] == 0
     (query,) = _names(spans, "tinyknn.query")
     (attempt,) = _names(spans, "tinyknn.attempt")
     (retry,) = _names(spans, "tinyknn.retry")
@@ -139,6 +141,41 @@ def test_a_retry_counts_its_pass_and_the_first_pass_drops(index):
         assert len([s for s in _names(spans, name)
                     if _inside(s, retry)]) >= 1, name
     assert len(_names(spans, "tinyknn.drop_check")) == 2
+
+
+@pytest.mark.parametrize("qc", [8, 16, 32])
+def test_a_pinned_batch_loses_the_pairs_it_drops(index, qc):
+    """Capacities pinned by ``queries_per_cluster``: one pass, no retry,
+    so every pair it drops is lost, as ``with_stats`` reports it."""
+    ivf, X, qs = index
+    batch = np.concatenate([qs, _skewed(X, 40)])
+    ivf.queries_per_cluster = qc
+    try:
+        (_, stats), delta = _delta(lambda: ivf.query(
+            batch, k=5, n_probes=2, mode="bucket", with_stats=True))
+    finally:
+        ivf.queries_per_cluster = None
+    assert stats["dropped_probe_pairs"] > 0
+    assert delta == {"query.attempts": 1,
+                     "query.dropped_pairs": stats["dropped_probe_pairs"],
+                     "query.rescued_pairs": 0,
+                     "query.lost_pairs": stats["dropped_probe_pairs"]}
+
+
+def test_xla_drops_past_clamped_caps_are_lost(index, monkeypatch):
+    """The 'xla' engine scans no overflow grid: with the caps clamped to
+    the first pass's capacities by ``scan_budget_bytes``, its three
+    passes drop alike, and the last pass's drops are the lost pairs."""
+    ivf, X, qs = index
+    batch = np.concatenate([qs, _skewed(X, 100)])
+    monkeypatch.setattr(ivf, "scan_impl", "xla")
+    monkeypatch.setattr(ivf, "scan_budget_bytes", 1)
+    (_, stats), delta = _delta(lambda: ivf.query(
+        batch, k=5, n_probes=2, mode="bucket", with_stats=True))
+    assert delta["query.attempts"] == 3 and delta["query.rescued_pairs"] == 0
+    assert stats["dropped_probe_pairs"] > 0
+    assert delta["query.lost_pairs"] == stats["dropped_probe_pairs"]
+    assert delta["query.dropped_pairs"] == 3 * stats["dropped_probe_pairs"]
 
 
 def test_query_stream_counts_one_pass_per_batch(index):
@@ -154,7 +191,8 @@ def test_query_stream_counts_one_pass_per_batch(index):
     (_, stats), delta = holder["out"]
     assert delta == {"query.attempts": 3,
                      "query.dropped_pairs": stats["dropped_probe_pairs"],
-                     "query.rescued_pairs": 0}
+                     "query.rescued_pairs": 0,
+                     "query.lost_pairs": stats["dropped_probe_pairs"]}
     assert stats["dropped_probe_pairs"] > 0
     (call,) = _names(spans, "tinyknn.query_stream")
     assert len(_names(spans, "tinyknn.scan")) == 6
@@ -163,7 +201,7 @@ def test_query_stream_counts_one_pass_per_batch(index):
     _, delta = _delta(lambda: ivf.query_stream(
         stream, k=5, n_probes=2, adaptive_qc=False, device_out=True))
     assert delta == {"query.attempts": 3, "query.dropped_pairs": 0,
-                     "query.rescued_pairs": 0}
+                     "query.rescued_pairs": 0, "query.lost_pairs": 0}
 
 
 def test_gather_mode_is_one_gather_span_and_no_pass(index):
@@ -179,7 +217,7 @@ def test_gather_mode_is_one_gather_span_and_no_pass(index):
     (_, stats), delta = holder["out"]
     assert stats["mode"] == "gather"
     assert delta == {"query.attempts": 0, "query.dropped_pairs": 0,
-                     "query.rescued_pairs": 0}
+                     "query.rescued_pairs": 0, "query.lost_pairs": 0}
     (query,) = _names(spans, "tinyknn.query")
     (gather,) = _names(spans, "tinyknn.gather")
     assert _inside(gather, query)

@@ -75,6 +75,7 @@ from .fast_pq import FastPQ, _build_tables, _resolve_method, as_f32
 
 FOLD_MULT = 8       # fold-width headroom over r (see _fold_tiles)
 GATHER_MAX_PAIRS = 64  # mode='auto' gathers when Q * n_probes is at most this
+GROUP_SLOTS = 32    # query slots per grid list of _overflow_groups
 # one-hot bytes per step of the 'xla' scan: the JAX package steps over
 # CLUSTER_CHUNK = 8 lists; a byte budget bounds the step whatever the
 # list length
@@ -277,13 +278,17 @@ class IVF:
 
         A skewed batch (many queries near one list) can overflow the
         per-list bucket capacity. The first pass scans the overflowing
-        (query, probe) pairs of each scan round, up to one more
+        (query, probe) pairs of each scan round, up to one more (larger)
         bucket's worth, in an overflow grid of the same round, so a few
         overflows cost one small kernel launch and change no id. Only
         when that grid overflows too does the query retry, at 4x the
         capacity and last at the can't-drop caps, as the JAX package
-        does. ``queries_per_cluster`` pins the capacity and turns both
-        off: the drops are then reported, as by ``query_stream``.
+        does. Where ``scan_budget_bytes`` clamps the caps below the
+        fullest list, the JAX package drops the rest; here the last pass
+        scans it in an overflow grid with room for every pair the pass
+        before dropped. ``queries_per_cluster`` pins the capacity and
+        turns all of this off: the drops are then reported, as by
+        ``query_stream``.
 
         On the exact engine the default rescore sliver ``pass_1`` is
         4 * k * n_probes, linear in n_probes; pass an explicit
@@ -341,8 +346,8 @@ class IVF:
         positional int32 ids with no label mapping, for a caller whose
         next stage runs on the device; it cannot build the stats dict,
         and since the host never reads the drops, it adds none to
-        ``counters["query.dropped_pairs"]`` (the R passes still count in
-        ``counters["query.attempts"]``).
+        ``counters["query.dropped_pairs"]`` or ``"query.lost_pairs"``
+        (the R passes still count in ``counters["query.attempts"]``).
 
         There is no drop retry (it would rerun the whole stream).
         Instead, with ``adaptive_qc=True`` the first call at a
@@ -397,6 +402,7 @@ class IVF:
             with span("tinyknn.drop_check"):
                 dropped = int(dropped)
             counters["query.dropped_pairs"] += dropped
+            counters["query.lost_pairs"] += dropped
             if adaptive and dropped:
                 _refresh_stream_floors(self, key, batches, n_probes,
                                        just_measured=fresh)
@@ -455,10 +461,11 @@ class IVF:
             return "xla"
         return "fused"
 
-    def _bucket_query(self, q, params, scan_impl, rescue=False):
+    def _bucket_query(self, q, params, scan_impl, grid=None):
         """One bucket-mode batch: (ids (Q, k), dropped pairs tensor);
-        ``rescue``: ``_ivf_query``'s overflow grids, whose drops are
-        int64[2] (still dropped, rescued)."""
+        ``grid``: ``_ivf_query``'s overflow grids, room for that many
+        dropped pairs a round, whose drops are int64[2] (still dropped,
+        rescued)."""
         k, n_probes, pass_1, r, r_tail, qc, qc0 = params
         return _ivf_query(
             q, self.pq, self.active_centers,
@@ -467,7 +474,7 @@ class IVF:
             self.csr_raw, metric=self.metric, k=k, n_probes=n_probes,
             pass_1=pass_1, r=r, r_tail=r_tail, qc=qc, qc0=qc0,
             max_tiles=self.max_tiles, build_probes=self.build_probes,
-            fold_mult=self.fold_mult, scan_impl=scan_impl, rescue=rescue)
+            fold_mult=self.fold_mult, scan_impl=scan_impl, grid=grid)
 
     def _map_labels(self, out):
         """Positional ids -> user labels (-1 stays -1), on the device."""
@@ -642,33 +649,43 @@ def _query_with_retries(self, q, params, Q: int, rescue: bool = False,
     last at the can't-drop caps (one attempt when ``queries_per_cluster``
     pins them). ``rescue`` (``IVF.query`` asks for it on the engines
     'fused' and 'exact' with capacities not pinned): the first attempt
-    scans each round's overflowing pairs in an overflow grid, so it
-    retries only when that grid overflowed too. ``Q`` and ``view`` are
+    scans each round's overflowing pairs, up to the larger capacity's
+    worth, in an overflow grid, so it retries only when that grid
+    overflowed too; the last attempt scans its own in a grid with room
+    for every pair that the attempt before it dropped (the caps are no
+    lower than that attempt's capacities), so that it drops nothing
+    where ``scan_budget_bytes`` clamps the caps below the fullest
+    list. ``Q`` and ``view`` are
     ``_batch_view``'s. Returns ``(ids, dropped pairs, qc, qc0)`` of the
-    last attempt."""
+    last attempt; its drops also count in ``query.lost_pairs``."""
     k, n_probes, pass_1, r, r_tail, qc, qc0 = params
     scan_impl = self._scan_engine()
     attempts = 1 if self.queries_per_cluster else 3
     qc_full, qc0_full = _qc_caps(self, Q, n_probes, r, r_tail, qc, qc0,
                                  n_active=view.get("n_active"))
+    grid = max(qc, qc0) if rescue else None   # a pass's room a round
     for attempt in range(attempts):
         counters["query.attempts"] += 1
         params = (k, n_probes, pass_1, r, r_tail, qc, qc0)
-        grid = rescue and not attempt
         with span("tinyknn.retry" if attempt else "tinyknn.attempt"):
             out, drops = self._bucket_query(q, params, scan_impl, grid)
         with span("tinyknn.drop_check"):
-            # the grid's drops are int64[2]: (still dropped, rescued)
-            dropped, rescued = drops.tolist() if grid else (int(drops), 0)
+            # a grid's drops are int64[2]: (still dropped, rescued)
+            dropped, rescued = (drops.tolist() if grid is not None
+                                else (int(drops), 0))
         counters["query.dropped_pairs"] += dropped
         counters["query.rescued_pairs"] += rescued
         if attempt + 1 == attempts or dropped == 0:
             break
         if attempt + 2 == attempts:  # last try: can't-drop caps
             qc, qc0 = qc_full, qc0_full
+            grid = dropped if rescue else None
         else:
             qc = min(round_up(4 * qc, 8), qc_full)
             qc0 = min(round_up(4 * qc0, 8), qc0_full)
+            grid = None
+    if dropped:  # the last pass's drops: no answer scanned them
+        counters["query.lost_pairs"] += dropped
     return out, dropped, qc, qc0
 
 
@@ -848,7 +865,8 @@ def _bucket_pairs(probe_sub, C: int, qc: int):
 def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
                        list_counts, qc: int, r: int, max_tiles: int,
                        fold_mult: int, scan_impl: str = "fused",
-                       n_blocks: int | None = None, rescue: bool = False):
+                       n_blocks: int | None = None,
+                       grid: int | None = None):
     """One bucketed scan round over a probe subset.
 
     probe_sub: (Q, Ps) list ids. Scans every list once for all its
@@ -867,13 +885,21 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
     empty slot; 'fused' also hands K1 ``n_blocks``, the real table block
     count, so it skips the pad blocks.
 
-    ``rescue`` ('fused' and 'exact'): the first ``qc`` pairs that found
+    ``grid`` ('fused' and 'exact'): the first ``grid`` pairs that found
     their bucket full are scanned in the same round by a second launch
-    of the kernel over an overflow grid (``_overflow_grid``), and their
-    fold rows take the place of the dropped rows. A pair's fold depends
-    on the pair, r and the fold width alone, so a rescued pair's row is
-    the one a grid with room for it gives. ``dropped`` is then int64[2]:
-    the pairs still dropped and the pairs rescued.
+    of the kernel over an overflow grid, and their fold rows take the
+    place of the dropped rows. Where the round's drops may lie one a
+    list (a first pass's few overflows), the grid holds one pair a grid
+    list (``_overflow_grid``); where they can only crowd, two or more a
+    list on average (the caps pass, past caps that ``scan_budget_bytes``
+    clamps), up to ``GROUP_SLOTS`` pairs of one list a grid list
+    (``_overflow_groups``), so that the kernel reads such a list once
+    for that many pairs. Each form is the cheaper in its regime: groups
+    cost a sort and ``GROUP_SLOTS`` rows a grid list, one slot a list
+    reads a crowded list once a pair. A pair's fold depends on the
+    pair, r and the fold width alone, so a rescued pair's row is the one
+    a grid with room for it gives. ``dropped`` is then int64[2]: the
+    pairs still dropped and the pairs rescued.
     """
     C = tile_offsets.shape[0]
     with span("tinyknn.bucket"):
@@ -881,9 +907,21 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
         t_sel = tables_flat[qgrid.clamp(min=0)]       # (C, qc, M)
         if scan_impl != "xla":
             slot_counts = (qgrid >= 0).sum(1, dtype=torch.int32)
-        if rescue:
-            over = _overflow_grid(probe_sub, in_slot, dropped, tables_flat,
-                                  tile_offsets, list_counts, qc)
+        if grid is not None:
+            # a round drops at most n - qc pairs, from at most n // (qc + 1)
+            # lists; room pairs of m lists fill at most
+            # (room + m (q - 1)) / q groups of q
+            n, q = probe_sub.numel(), GROUP_SLOTS
+            room = max(1, min(grid, n - qc))
+            m = min(C, room, n // (qc + 1))
+            if 0 < m and 2 * m <= room:   # two or more pairs a list
+                over = _overflow_groups(
+                    probe_sub, in_slot, dropped, tables_flat, tile_offsets,
+                    list_counts, room, -(-(room + m * (q - 1)) // q), q)
+            else:
+                over = _overflow_grid(probe_sub, in_slot, dropped,
+                                      tables_flat, tile_offsets, list_counts,
+                                      room)
     with span("tinyknn.scan"):
         if scan_impl == "xla":
             vals, rows = _xla_scan(t_sel, csr_codes, tile_offsets,
@@ -902,14 +940,15 @@ def _bucket_scan_round(probe_sub, tables_flat, csr_codes, tile_offsets,
         S = enc.shape[2]
         my_enc = enc.reshape(C * qc, S)[pair_idx]     # (Q, Ps, S)
         my_enc = torch.where(in_slot[:, :, None], my_enc, ENC_INVALID)
-        if rescue:
+        if grid is not None:
             pair, t_over, toff, counts, filled, dropped = over
             enc = scan(t_over, csr_codes, toff, counts, slot_counts=filled,
-                       **kw)                          # (qc, 1, S)
+                       **kw)                          # (O, slots, S)
             # a rescued pair's row holds the sentinel, so the minimum is
-            # its fold row; an empty entry's row is all sentinels
+            # its fold row; an empty slot's row is all sentinels
             my_enc.view(-1, S).scatter_reduce_(
-                0, pair[:, None].expand(-1, S), enc.view(-1, S), "amin")
+                0, pair.reshape(-1, 1).expand(-1, S), enc.view(-1, S),
+                "amin")
         rowbase = (tile_offsets.long() * LANE_TILE)[
             probe_sub.clamp(max=C - 1)]
     return my_enc, rowbase, dropped
@@ -942,6 +981,51 @@ def _overflow_grid(probe_sub, in_slot, dropped, tables_flat, tile_offsets,
     return (pair, tables_flat[pair // Ps][:, None], tile_offsets[c],
             list_counts[c], filled.to(torch.int32),
             torch.stack([left, dropped - left]))
+
+
+def _overflow_groups(probe_sub, in_slot, dropped, tables_flat, tile_offsets,
+                     list_counts, room: int, O: int, q: int = GROUP_SLOTS):
+    """The overflow grid of a scan round whose drops crowd into a few
+    lists: its first ``room`` pairs that found their bucket full, list by
+    list and in pair order within a list, each list's in groups of ``q``
+    as ``O`` grid lists of ``q`` query slots (a list's last group filled
+    from its first slot), so that the kernel reads a list once for up to
+    ``q`` of its pairs. Compacted on the device with no host sync (a sort
+    by list, ranks in runs, scatters); groups past ``O`` stay dropped.
+
+    Returns what ``_overflow_grid`` returns, with ``pair`` int64[O, q]
+    and tables [O, q, M]: an empty slot lies past its grid list's slot
+    count, so the kernel scans nothing for it, and repeats the grid
+    list's first pair (an empty grid list's: the pair of its own index),
+    whose list the grid list is, so that a scan of it would hand back
+    that pair's own fold row."""
+    C = tile_offsets.shape[0]
+    Ps = probe_sub.shape[1]
+    dev = probe_sub.device
+    lists = probe_sub.reshape(-1)
+    n = lists.shape[0]
+    # every pair but the dropped ones goes to a spare list C, sorted last
+    c = torch.where(~in_slot.reshape(-1) & (lists < C), lists, C)
+    order = torch.argsort(c, stable=True)
+    sc = c[order]
+    pos = torch.arange(n, device=dev)
+    start = torch.ones_like(sc, dtype=torch.bool)
+    start[1:] = sc[1:] != sc[:-1]
+    slot = (pos - torch.cummax(torch.where(start, pos, 0), dim=0).values) % q
+    entry = torch.cumsum(slot == 0, 0) - 1            # each pair's group
+    keep = (sc < C) & (pos < room) & (entry < O)
+    entry = torch.where(keep, entry, O)               # O: a spare entry
+    pair = (torch.arange(O * q + 1, device=dev) // q % n).scatter_(
+        0, torch.where(keep, entry * q + slot, O * q), order)[:O * q]
+    filled = torch.zeros(O + 1, dtype=torch.int32, device=dev).scatter_add_(
+        0, entry, keep.to(torch.int32))[:O]
+    pair = pair.view(O, q)
+    pair = torch.where(torch.arange(q, device=dev) < filled[:, None], pair,
+                       pair[:, :1])
+    of = lists[pair[:, 0]].clamp(max=C - 1)
+    rescued = keep.sum()
+    return (pair, tables_flat[pair // Ps], tile_offsets[of], list_counts[of],
+            filled, torch.stack([dropped - rescued, rescued]))
 
 
 def _xla_scan(t_sel, csr_codes, tile_offsets, list_counts, r: int,
@@ -1018,12 +1102,12 @@ def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
                list_counts, data, csr_raw=None, *, metric: str, k: int,
                n_probes: int, pass_1: int, r: int, r_tail: int, qc: int,
                qc0: int, max_tiles: int, build_probes: int, fold_mult: int,
-               scan_impl: str = "fused", rescue: bool = False):
+               scan_impl: str = "fused", grid: int | None = None):
     """The batched bucket-mode IVF query: returns (ids (Q, k), dropped
-    pairs); with ``rescue`` ('fused' and 'exact'), each scan round scans
-    the pairs that overflow its buckets in an overflow grid (see
-    ``_bucket_scan_round``), and the drops are int64[2]: the pairs
-    still dropped and the pairs rescued.
+    pairs); with ``grid`` ('fused' and 'exact'), each scan round scans
+    up to ``grid`` of the pairs that overflow its buckets in an overflow
+    grid (see ``_bucket_scan_round``), and the drops are int64[2]: the
+    pairs still dropped and the pairs rescued.
 
     ``scan_impl``: 'fused' (K1 over the codes), 'exact' (csr_codes
     holds the exact engine's vector tiles, stage 1 augments the queries
@@ -1053,7 +1137,7 @@ def _ivf_query(q, pq, active_centers, csr_codes, csr_ids, tile_offsets,
 
     # -- scan rounds
     kw = dict(max_tiles=max_tiles, fold_mult=fold_mult, scan_impl=scan_impl,
-              n_blocks=B, rescue=rescue)
+              n_blocks=B, grid=grid)
     v0, rows0, dropped = _bucket_scan_round(
         probe_sel[:, :1], tables_flat, csr_codes, tile_offsets, list_counts,
         qc=qc0, r=r, **kw)

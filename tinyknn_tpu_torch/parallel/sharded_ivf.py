@@ -253,7 +253,7 @@ class ShardedIVF(IVF):
     def _answer_device(self):
         return self.mesh.devices[self._grid[0][0]]
 
-    def _bucket_query(self, q, params, scan_impl, rescue=False):
+    def _bucket_query(self, q, params, scan_impl, grid=None):
         # the mesh rounds scan no overflow grid: ShardedIVF.query never
         # asks for one, and retries its drops as the JAX package does
         return self._mesh_query(q, params, scan_impl)

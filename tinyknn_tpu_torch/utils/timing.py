@@ -28,10 +28,16 @@ where the work happens; a reader takes differences over its window:
 ``query.attempts``, the bucket-mode passes over a batch;
 ``query.dropped_pairs``, the (query, probe) pairs those passes dropped,
 counted where the host reads them (``query_stream(device_out=True)``
-reads none and counts none); and ``query.rescued_pairs``, the pairs
-that overflowed their bucket in ``IVF.query``'s first pass and were
-scanned in its overflow grid instead of dropped (read in the same
-transfer as the drops).
+reads none and counts none); ``query.rescued_pairs``, the pairs
+that overflowed their bucket in ``IVF.query``'s first pass, or past
+the caps in its last, and were scanned in that pass's overflow grid
+instead of dropped (read in the same transfer as the drops); and ``query.lost_pairs``, the pairs that a
+batch's answer never scanned: those that the last pass of ``query()``
+still dropped (where ``queries_per_cluster`` pins the capacities, or
+where the 'xla' engine or ``ShardedIVF.query``, which scan no overflow
+grid, meet caps that ``scan_budget_bytes`` clamps below the fullest
+list), and every drop that ``query_stream``'s host path reads, since it
+has no retry.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ from pathlib import Path
 import torch
 
 counters = {"query.attempts": 0, "query.dropped_pairs": 0,
-            "query.rescued_pairs": 0}
+            "query.rescued_pairs": 0, "query.lost_pairs": 0}
 
 _NO_SPAN = nullcontext()
 
